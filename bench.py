@@ -1,25 +1,17 @@
 #!/usr/bin/env python
 """Benchmark driver: prints ONE JSON line with the headline metric.
 
-Budget-managed section runner (round 5). Round 4's flat driver was
-killed by the harness timeout (rc=124) with ZERO metrics recorded —
-cold XLA compiles for ~17 engine signatures exceed any plausible
-timeout. The fixes, in order of importance:
+Needs a GPU; on any other platform it exits non-zero. Sections run in
+value order under a wall budget (``T4A_BENCH_BUDGET_S``, default 2700 s)
+with per-section cold-cost estimates, adaptively rescaled by the
+observed actual/estimate ratio; sections the budget skips are listed in
+``detail.skipped_sections``. All progress goes to stderr; stdout carries
+exactly one JSON line. A failed section is recorded under
+``detail.<name>_error`` and makes the exit code 1; SIGTERM/SIGINT print
+the JSON gathered so far and exit 128 + the signal number.
 
-1. SIGTERM/SIGINT print the JSON accumulated SO FAR and exit 0 — a
-   timeout can no longer erase the run.
-2. Sections run in value order under a wall budget
-   (``T4A_BENCH_BUDGET_S``, default 2700 s — sized to the measured
-   full warm-cache run, 2325 s) with per-section cold-cost
-   estimates, adaptively rescaled by the observed actual/estimate
-   ratio (warm-cache runs complete everything; cold runs skip the
-   tail and say so in ``detail.skipped_sections``).
-3. All progress goes to stderr; stdout carries exactly one JSON line.
-
-Headline metric: TreeTN DMRG chain N=8, chi=32, 4 sweeps (baseline
-135.4 ms). Ladder fallback if the DMRG engine itself is broken:
-rrLU Hilbert 128x128, then MPO zipup. vs_baseline = baseline/ours
-(>1 means faster).
+Headline metric: DMRG chain N=8, chi=32, 4 sweeps (baseline 135.4 ms,
+BASELINE.md). vs_baseline = baseline/ours (>1 means faster).
 """
 
 from __future__ import annotations
@@ -32,17 +24,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# Persistent XLA compile cache: production rows compile 30-130 s per
-# signature on TPU; caching makes repeat invocations near-instant on
-# the compile side while leaving results identical.
-os.environ.setdefault("T4A_COMPILE_CACHE",
-                      os.path.expanduser("~/.cache/t4a_xla_bench"))
-
 T0 = time.monotonic()
-# 2700 s covers the full warm-cache section list (measured 2325 s, r5);
-# if the harness timeout is shorter, the SIGTERM handler emits whatever
-# the value-ordered sections have accumulated — a longer budget can
-# only add rows, never lose them.
 BUDGET = float(os.environ.get("T4A_BENCH_BUDGET_S", "2700"))
 RESULT: dict = {}
 _EMITTED = False
@@ -73,11 +55,7 @@ def _on_signal(signum, frame):  # noqa: ARG001
         detail["bench_interrupted"] = (
             f"signal {signum} at {_elapsed():.0f}s")
     _emit()
-    os._exit(0)
-
-
-signal.signal(signal.SIGTERM, _on_signal)
-signal.signal(signal.SIGINT, _on_signal)
+    os._exit(128 + signum)
 
 
 def _log(msg: str) -> None:
@@ -86,6 +64,8 @@ def _log(msg: str) -> None:
 
 
 def _median_time(fn, warmup: int = 2, reps: int = 5) -> float:
+    """Median wall time of ``fn``; ``fn`` must end in a device sync
+    (``block_until_ready`` or a host read of the result)."""
     for _ in range(warmup):
         fn()
     ts = []
@@ -97,139 +77,14 @@ def _median_time(fn, warmup: int = 2, reps: int = 5) -> float:
     return ts[len(ts) // 2]
 
 
-# ----------------------------------------------------------------- #
-# headline (always runs; ladder fallback like rounds 1-4)           #
-# ----------------------------------------------------------------- #
-
 def bench_dmrg_headline():
     from benchmarks.dmrg_chain import headline
 
     return headline(_median_time)
 
 
-def bench_rrlu():
-    """In-framework rrLU cost: K factorizations chained in ONE XLA
-    program (how rrLU is consumed by TCI/compression sweeps),
-    amortized. Standalone-call latency is dispatch-bound on a remote
-    TPU (~30 ms floor for ANY kernel) and is reported in detail."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from tensor4all_tpu.ops.rrlu import _rrlu_kernel, rrlu
-
-    n = 128
-    i = np.arange(n)
-    hilbert = jnp.asarray(1.0 / (1.0 + i[:, None] + i[None, :]))
-
-    if jax.default_backend() == "cpu":
-        h_np = np.asarray(hilbert)
-        out = rrlu(h_np, rtol=1e-10)
-        ts = []
-        for r in range(9):
-            t0 = time.perf_counter()
-            rrlu(h_np * (1.0 + 1e-9 * r), rtol=1e-10)
-            ts.append(time.perf_counter() - t0)
-        ts.sort()
-        t = ts[len(ts) // 2]
-        return {
-            "metric": "rrlu_hilbert_128_ms",
-            "value": t * 1e3,
-            "unit": "ms",
-            "vs_baseline": 0.329 / (t * 1e3),
-            "detail": {
-                "rank": int(out.rank),
-                "last_pivot_error": out.last_pivot_error,
-                "measurement": "host-numpy single calls",
-            },
-        }
-
-    K = 8
-
-    @jax.jit
-    def chain(a):
-        acc = jnp.zeros((), jnp.float64)
-        for k in range(K):
-            _, _, meta = _rrlu_kernel(a * (1.0 + 1e-9 * k), 1e-10, 0.0,
-                                      20)
-            acc = acc + meta.sum()
-        return acc
-
-    float(chain(hilbert))  # compile
-    ts = []
-    for r in range(5):
-        t0 = time.perf_counter()
-        float(chain(hilbert * (1.0 + 1e-7 * r)))
-        ts.append(time.perf_counter() - t0)
-    ts.sort()
-    t_total = ts[len(ts) // 2]
-    out = rrlu(hilbert, rtol=1e-10)  # compile
-    t0 = time.perf_counter()
-    out = rrlu(hilbert, rtol=1e-10)
-    t_standalone = time.perf_counter() - t0
-    noop = jax.jit(lambda x: x * 2.0)
-    float(jnp.sum(noop(hilbert)))  # compile
-    ds = []
-    for r in range(5):
-        t0 = time.perf_counter()
-        float(jnp.sum(noop(hilbert * (1.0 + 1e-7 * r))))
-        ds.append(time.perf_counter() - t0)
-    ds.sort()
-    t_dispatch = ds[len(ds) // 2]
-    t = max((t_total - t_dispatch) / K, 1e-6)
-    return {
-        "metric": "rrlu_hilbert_128_ms",
-        "value": t * 1e3,
-        "unit": "ms",
-        "vs_baseline": 0.329 / (t * 1e3),
-        "detail": {
-            "rank": int(out.rank),
-            "last_pivot_error": out.last_pivot_error,
-            "measurement": f"amortized over {K} chained factorizations",
-            "standalone_call_ms": t_standalone * 1e3,
-            "dispatch_floor_ms": t_dispatch * 1e3,
-        },
-    }
-
-
-def bench_mpo_zipup():
-    import jax
-    import jax.numpy as jnp
-
-    from tensor4all_tpu.tt import MPO
-
-    L, d, chi = 10, 2, 8
-    links = [1] + [chi] * (L - 1) + [1]
-    key = jax.random.PRNGKey(0)
-    ks = jax.random.split(key, 2 * L)
-    dtype = jnp.float64
-    a = MPO([
-        jax.random.normal(ks[k], (links[k], d, d, links[k + 1]), dtype)
-        / chi for k in range(L)
-    ])
-    b = MPO([
-        jax.random.normal(ks[L + k], (links[k], d, d, links[k + 1]),
-                          dtype) / chi for k in range(L)
-    ])
-
-    def run():
-        import numpy as np
-
-        out = a.compose_zipup_fast(b, tol=1e-12, maxdim=chi)
-        np.asarray(out.cores[-1])  # sync (cores may be host numpy)
-        return out
-
-    t = _median_time(run, warmup=3, reps=7)
-    return {
-        "metric": "mpo_zipup_L10_chi8_ms",
-        "value": t * 1e3,
-        "unit": "ms",
-        "vs_baseline": 2.297 / (t * 1e3),
-    }
-
-
 # ----------------------------------------------------------------- #
-# detail sections (TPU only), budgeted individually                 #
+# detail sections, budgeted individually                            #
 # ----------------------------------------------------------------- #
 
 def _sec_dmrg_prod(chip):
@@ -245,50 +100,43 @@ def _sec_mxu():
     from benchmarks.mxu import run as mxu_run
 
     out = {}
-    m = mxu_run(chi=512, dtype_name="bfloat16", k_applies=512, reps=3)
-    out["mxu_chi512_bf16_tflops"] = round(m["tflops"], 2)
-    out["mxu_chi512_mfu"] = round(m["mfu_vs_bf16_peak"], 4)
-    m = mxu_run(chi=1024, dtype_name="bfloat16", k_applies=256, reps=3)
-    out["mxu_chi1024_bf16_tflops"] = round(m["tflops"], 2)
-    out["mxu_chi1024_mfu"] = round(m["mfu_vs_bf16_peak"], 4)
+    for chi, k in ((512, 512), (1024, 256)):
+        for dt, prec in (("bfloat16", "default"), ("float32", "highest")):
+            m = mxu_run(chi=chi, dtype_name=dt, precision=prec,
+                        k_applies=k, reps=3)
+            out[f"apply_chi{chi}_{dt}_{prec}_tflops"] = round(m["tflops"], 2)
     return out
 
 
 def _sec_tdvp(chi_p):
     """Imaginary-time TDVP at production chi (jitted one-program
-    engine). Knobs per the r3/r4 grids: at chi=512 the bf16 Krylov
-    TAIL + short backward Krylov win 17% more (factorial coefficient
-    decay — tdvp_run docstring) and the r4 shifted-CholeskyQR splits
-    (cholqr_split) replace the 2.5 ms Householder panels (r4 grid:
-    1082.8 ms / 37.7% MFU vs 1131.5 / 36.1% without)."""
+    engine); the bf16 Krylov tail, short backward Krylov and
+    CholeskyQR splits of TDVP_KNOBS apply from chi=512 on."""
     import jax
     import jax.numpy as jnp
 
-    from benchmarks.dmrg_chain import _setup
-    from benchmarks.mxu import PEAK_BF16_TFLOPS
+    from benchmarks.dmrg_chain import TDVP_KNOBS, _setup
     from tensor4all_tpu.ops.tdvp_chain import tdvp_run, tdvp_sweep_flops
 
     N, d, m, nsteps = 32, 2, 12, 4
-    knobs = ({} if chi_p < 512 else
-             dict(bf16_tail=2, krylov_m1=6, expm_max_squarings=8,
-                  cholqr_split=True))
+    knobs = (TDVP_KNOBS if chi_p >= 512 else
+             {k: TDVP_KNOBS[k] for k in ("precision", "reortho",
+                                         "gemm2_apply")})
     dev = jax.devices()[0]
-    _, _, h, mps0, _ = _setup(N, chi_p)
+    h, mps0 = _setup(N, chi_p)
     h_p = jax.device_put(h.astype(jnp.float32), dev)
     mps_p = jax.device_put(mps0.astype(jnp.float32), dev)
 
     def body():
-        o = tdvp_run(h_p, mps_p, -0.05, nsteps=nsteps, order=2,
-                     krylov_m=m, sweep_dtype=jnp.float32,
-                     orthogonalize=True, precision="high",
-                     reortho=False, gemm2_apply=True, **knobs)
-        return o, float(jnp.sum(jnp.abs(o[0])))  # host sync
+        return tdvp_run(h_p, mps_p, -0.05, nsteps=nsteps, order=2,
+                        krylov_m=m, sweep_dtype=jnp.float32,
+                        orthogonalize=True,
+                        **knobs).block_until_ready()
 
-    o, _ = body()  # compile
+    o = body()  # compile
     # NaN trajectories must never report throughput
-    # (benchmarks/results/2026-08-18-tdvp-nan-fix.md)
     assert bool(jnp.isfinite(o).all()), f"TDVP chi={chi_p} state NaN"
-    t = _median_time(lambda: body()[1], warmup=0, reps=3)
+    t = _median_time(body, warmup=0, reps=3)
     fl = tdvp_sweep_flops(N, chi_p, d, h.shape[1], m, nsteps, order=2,
                           reortho=False, gemm2_apply=True,
                           krylov_m1=knobs.get("krylov_m1"))
@@ -298,40 +146,31 @@ def _sec_tdvp(chi_p):
         "tdvp_engine": "jitted one-program, f32 imaginary-time",
         f"{key}_4steps_ms": round(t * 1e3, 1),
         f"{key}_tflops": round(tflops, 2),
-        f"{key}_mfu_vs_bf16_peak": round(tflops / PEAK_BF16_TFLOPS, 4),
     }
     return out
 
 
 def _sec_tdvp_rt(chi):
-    """REAL-TIME evolution via the real/imag-split engine (no complex
-    dtypes — the path that runs on this chip, VERDICT r1 #9; r3 #2
-    asks for >=4 steps at chi=256 AND 512 with Karatsuba 3-real-GEMM
-    complex multiplies). Knobs per the r5 orthonormalization-ladder
-    grid (benchmarks/results/2026-08-21-rt-roofline.md): chi=512
-    11.0 s -> 7.3 s at gold overlap 0.9999977."""
+    """Real-time evolution via the real/imag-split engine (Karatsuba
+    3-real-GEMM complex multiplies, one-pass pair-CholeskyQR inner
+    conditioner)."""
     import jax
     import jax.numpy as jnp
 
     from benchmarks.dmrg_chain import _setup
-    from benchmarks.mxu import PEAK_BF16_TFLOPS
     from tensor4all_tpu.ops.tdvp_chain import tdvp_sweep_flops
     from tensor4all_tpu.ops.tdvp_chain_split import tdvp_run_split
 
     N, d, m, nsteps = 32, 2, 12, 4
     dev = jax.devices()[0]
-    _, _, h, mps0, _ = _setup(N, chi)
+    h, mps0 = _setup(N, chi)
     h_d = jax.device_put(h.astype(jnp.float32), dev)
     mr = jax.device_put(mps0.astype(jnp.float32), dev)
     mi = jax.device_put(jnp.zeros_like(mr), dev)
 
     def body():
         # full-rank bench state: dead-slot completion is a no-op and
-        # may be skipped (complete_basis docstring). r5 grid
-        # (2026-08-21-rt-roofline.md): Karatsuba + the ONE-PASS pair-
-        # CholeskyQR inner conditioner (split_orth="cholqr1", gold
-        # overlap 0.9999977 at chi=256) — full cholqr_split and the
-        # stacked/eq/polar inners are measured negatives, see the note
+        # may be skipped (complete_basis docstring)
         r_, i_ = tdvp_run_split(h_d, mr, mi, 0.0, -0.05, nsteps=nsteps,
                                 order=2, krylov_m=m,
                                 orthogonalize=True, split_iters=1,
@@ -339,12 +178,12 @@ def _sec_tdvp_rt(chi):
                                 reortho=False, bf16_tail=3,
                                 krylov_m1=8, expm_max_squarings=8,
                                 karatsuba=True, split_orth="cholqr1")
-        return r_, i_, float(jnp.sum(r_[0] ** 2 + i_[0] ** 2))
+        return jax.block_until_ready((r_, i_))
 
-    r_, i_, _ = body()  # compile
+    r_, i_ = body()  # compile
     assert bool(jnp.isfinite(r_).all() & jnp.isfinite(i_).all()), \
         f"split TDVP chi={chi} state NaN"
-    t = _median_time(lambda: body()[2], warmup=0, reps=3)
+    t = _median_time(body, warmup=0, reps=3)
     fl = tdvp_sweep_flops(N, chi, d, h.shape[1], m, nsteps, order=2,
                           complex_dtype=True, reortho=False,
                           krylov_m1=8, karatsuba=True)
@@ -353,9 +192,7 @@ def _sec_tdvp_rt(chi):
     return {
         f"{key}_{nsteps}steps_ms": round(t * 1e3, 1),
         f"{key}_tflops": round(tflops, 2),
-        f"{key}_mfu_vs_bf16_peak": round(tflops / PEAK_BF16_TFLOPS, 4),
-        "tdvp_split_engine": ("real/imag-split pairs, f32 Karatsuba, "
-                              "real-time on complex-less TPU"),
+        "tdvp_split_engine": "real/imag-split pairs, f32 Karatsuba",
     }
 
 
@@ -369,7 +206,7 @@ def _linsolve_setup(chi, chib):
 
     N = 32
     dev = jax.devices()[0]
-    _, _, h, mps0, _ = _setup(N, chi)
+    h, mps0 = _setup(N, chi)
     h = jax.device_put(h.astype(jnp.float32), dev)
     x0 = jax.device_put(mps0.astype(jnp.float32), dev)
     bt = TensorTrain.random(jax.random.PRNGKey(1), [2] * N, rank=chib,
@@ -379,11 +216,11 @@ def _linsolve_setup(chi, chib):
 
 
 def _sec_linsolve_fixed(chi, chib):
-    """Fixed-2-sweep throughput row (the r3 demo point; the SOLVE
-    contract row is _sec_linsolve_tol)."""
+    """Fixed-2-sweep throughput row (the solve-contract row is
+    _sec_linsolve_tol)."""
+    import jax
     import jax.numpy as jnp
 
-    from benchmarks.mxu import PEAK_BF16_TFLOPS
     from tensor4all_tpu.ops.linsolve_chain import (
         linsolve_run,
         linsolve_sweep_flops,
@@ -393,14 +230,11 @@ def _sec_linsolve_fixed(chi, chib):
     h, b, x0 = _linsolve_setup(chi, chib)
 
     def body():
-        # r3 grid 2026-08-18: gemm2+bf16 at the 'high'-precision
-        # default is the accuracy/speed knee. certify=False: the f64-
-        # emulated certification scan costs ~5 s at chi=512 (r5) and
-        # is run ONCE outside the timed region below.
-        rel, x = linsolve_run(h, b, x0, 1.0, 0.05, n_sweeps=ns,
-                              minres_m=m, gemm2_apply=True, bf16=True,
-                              certify=False)
-        return float(rel), x
+        # certify=False in the timed region: the f64 certification scan
+        # runs ONCE below
+        return jax.block_until_ready(linsolve_run(
+            h, b, x0, 1.0, 0.05, n_sweeps=ns, minres_m=m,
+            gemm2_apply=True, bf16=True, certify=False))
 
     body()  # compile
     rel, x = linsolve_run(h, b, x0, 1.0, 0.05, n_sweeps=ns,
@@ -408,7 +242,7 @@ def _sec_linsolve_fixed(chi, chib):
                           certify=True)
     rel = float(rel)
     assert bool(jnp.isfinite(x).all()), f"linsolve chi={chi} NaN"
-    t = _median_time(lambda: body()[0], warmup=0, reps=3)
+    t = _median_time(body, warmup=0, reps=3)
     fl = linsolve_sweep_flops(32, chi, chib, 2, h.shape[1], m, ns,
                               gemm2_apply=True)
     tflops = fl / t / 1e12
@@ -418,23 +252,19 @@ def _sec_linsolve_fixed(chi, chib):
         f"{key}_{ns}sweeps_ms": round(t * 1e3, 1),
         f"{key}_rel_residual": float(rel),
         f"{key}_tflops": round(tflops, 2),
-        f"{key}_mfu_vs_bf16_peak": round(tflops / PEAK_BF16_TFLOPS, 4),
     }
 
 
 def _sec_linsolve_tol(chi, chib):
-    """Sweep-to-tolerance row (VERDICT r3 #5): solve until the
-    f64-CERTIFIED relative residual meets the target or the engine's
-    measured f32 fixed point, the reference's solve contract
-    (linsolve/square/updater.rs verify report). chib=64 keeps the
-    solution inside the chi manifold so the certified number shows the
-    ENGINE's floor, not a truncation artifact; the measured f32 sweep
-    fixed point at production scale is ~8e-4 and refine-insensitive
-    (benchmarks/results/2026-08-21-linsolve-floor.md) — 1e-6-grade
-    certs need the f64 path (CPU engines / the framework solver)."""
+    """Sweep-to-tolerance row: solve until the f64-certified relative
+    residual meets the target or the engine's f32 fixed point, the
+    reference's solve contract (linsolve/square/updater.rs verify
+    report). chib=64 keeps the solution inside the chi manifold so the
+    certified number shows the engine's floor, not a truncation
+    artifact."""
+    import jax
     import jax.numpy as jnp
 
-    from benchmarks.mxu import PEAK_BF16_TFLOPS
     from tensor4all_tpu.ops.linsolve_chain import (
         linsolve_run_tol,
         linsolve_sweep_flops,
@@ -443,14 +273,14 @@ def _sec_linsolve_tol(chi, chib):
     h, b, x0 = _linsolve_setup(chi, chib)
 
     def body():
-        cert, est, x, sw = linsolve_run_tol(
+        return jax.block_until_ready(linsolve_run_tol(
             h, b, x0, 1.0, 0.05, tol=1e-6, max_sweeps=8, minres_m=16,
-            gemm2_apply=True, bf16=True, precision="high")
-        return float(cert), float(est), x, float(sw)
+            gemm2_apply=True, bf16=True, precision="high"))
 
     cert, est, x, sw = body()  # compile
+    cert, sw = float(cert), float(sw)
     assert bool(jnp.isfinite(x).all()), f"linsolve_tol chi={chi} NaN"
-    t = _median_time(lambda: body()[0], warmup=0, reps=3)
+    t = _median_time(body, warmup=0, reps=3)
     # while-loop sweeps + the static refine epilogue actually executed
     fl = linsolve_sweep_flops(32, chi, chib, 2, h.shape[1], 16,
                               int(sw) + 2, gemm2_apply=True)
@@ -461,18 +291,15 @@ def _sec_linsolve_tol(chi, chib):
         f"{key}_certified_residual": float(f"{cert:.3e}"),
         f"{key}_sweeps_used": sw,
         f"{key}_tflops": round(tflops, 2),
-        f"{key}_mfu_vs_bf16_peak": round(tflops / PEAK_BF16_TFLOPS, 4),
     }
 
 
 def _sec_comb(chi, ns=4, reps=3):
     """Tree topology at production backbone chi: the jitted comb
-    engine (VERDICT r3 #4 — first tree family with an MFU figure on
-    device)."""
+    DMRG engine."""
     import jax
     import jax.numpy as jnp
 
-    from benchmarks.mxu import PEAK_BF16_TFLOPS
     from tensor4all_tpu.ops.dmrg_comb import (
         comb_heisenberg_stacks,
         dmrg_comb_run,
@@ -496,9 +323,9 @@ def _sec_comb(chi, ns=4, reps=3):
             tooth_lanczos_iters=8, gemm2_apply=True, reortho=False,
             ritz_solver="bisect_f32", energy_precision="mixed",
             precision="high")
-        return float(e)
+        return e.block_until_ready()
 
-    e = body()  # compile
+    e = float(body())  # compile
     t = _median_time(body, warmup=0, reps=reps)
     fl = dmrg_comb_sweep_flops(Nb, Mt, chi, chit, d, wb.shape[1], ns,
                                16, 8, gemm2_apply=True, reortho=False)
@@ -510,19 +337,16 @@ def _sec_comb(chi, ns=4, reps=3):
         f"{key}_{ns}sweeps_ms": round(t * 1e3, 1),
         f"{key}_e_per_site": round(e / (Nb * (1 + Mt)), 8),
         f"{key}_tflops": round(tflops, 2),
-        f"{key}_mfu_vs_bf16_peak": round(tflops / PEAK_BF16_TFLOPS, 4),
     }
 
 
 def _sec_comb_tdvp(chi, nsteps=4, reps=3):
-    """Tree-topology TIME EVOLUTION at production backbone chi: the
-    jitted comb TDVP engine (r4 047679f) — trees get both flagship
-    solvers on device, with MFU from the analytic model mirroring the
+    """Tree-topology time evolution at production backbone chi: the
+    jitted comb TDVP engine, TFLOP/s from the analytic model of the
     executed Euler-tour sweep work."""
     import jax
     import jax.numpy as jnp
 
-    from benchmarks.mxu import PEAK_BF16_TFLOPS
     from tensor4all_tpu.ops.dmrg_comb import (
         comb_heisenberg_stacks,
         random_comb_state,
@@ -549,12 +373,12 @@ def _sec_comb_tdvp(chi, nsteps=4, reps=3):
             krylov_m=mB, tooth_krylov_m=mT,
             sweep_dtype=jnp.float32, gemm2_apply=True, reortho=False,
             precision="high", expm_max_squarings=8)
-        return ab, at, float(jnp.sum(jnp.abs(ab[0])))
+        return jax.block_until_ready((ab, at))
 
-    ab, at, _ = body()  # compile
+    ab, at = body()  # compile
     assert bool(jnp.isfinite(ab).all() & jnp.isfinite(at).all()), \
         f"comb TDVP chi={chi} state NaN"
-    t = _median_time(lambda: body()[2], warmup=0, reps=reps)
+    t = _median_time(body, warmup=0, reps=reps)
     fl = tdvp_comb_sweep_flops(Nb, Mt, chi, chit, d, wb.shape[1],
                                nsteps, order=2, krylov_m=mB,
                                tooth_krylov_m=mT, gemm2_apply=True,
@@ -566,12 +390,11 @@ def _sec_comb_tdvp(chi, nsteps=4, reps=3):
                              "Nb=16 Mt=2 chit=4 (48 sites)"),
         f"{key}_{nsteps}steps_ms": round(t * 1e3, 1),
         f"{key}_tflops": round(tflops, 2),
-        f"{key}_mfu_vs_bf16_peak": round(tflops / PEAK_BF16_TFLOPS, 4),
     }
 
 
 def _sec_tci_cfg2():
-    """TCI2 on device, north-star config 2 (VERDICT r3 #3)."""
+    """TCI2 on device, BASELINE config 2 (10-D Gaussian, d=10)."""
     from benchmarks.tci_device import run as tci_run
 
     rows = tci_run(reps=3, heavy_reps=0, heavy_host=False)
@@ -580,11 +403,8 @@ def _sec_tci_cfg2():
 
 def _sec_tci_heavy():
     """TCI2 device rows at production candidate size (expensive
-    jittable integrand). The heavy host-CPU comparison (225.3 s on
-    this 1-core VM; the fused device path wins at 199.1 s) is a
-    committed measurement in
-    benchmarks/results/2026-08-21-tci-device.md — too slow to re-run
-    inside the driver bench."""
+    jittable integrand). The host-CPU path is too slow to run inside
+    the bench."""
     from benchmarks.tci_device import run as tci_run
 
     rows = tci_run(reps=0, heavy_reps=1, heavy_host=False)
@@ -616,7 +436,7 @@ def _sections():
         ("linsolve_tol_chi512", 120, lambda: _sec_linsolve_tol(512, 64)),
         ("tdvp_rt_chi512", 150, lambda: _sec_tdvp_rt(512)),
         ("dmrg_chi1024", 140, _sec_dmrg_prod(1024)),
-        ("mxu", 50, _sec_mxu),
+        ("apply", 50, _sec_mxu),
         ("tdvp_rt_chi256", 110, lambda: _sec_tdvp_rt(256)),
         # certify is a static argname: each fixed section compiles TWO
         # programs cold (timed certify=False + one certified report)
@@ -625,11 +445,9 @@ def _sections():
         ("linsolve_tol_chi256", 100,
          lambda: _sec_linsolve_tol(256, 64)),
         ("dmrg_chi2048", 220, _sec_dmrg_prod(2048)),
-        # 2 sweeps: a throughput row — MFU is sweep-count invariant to
-        # within the un-modeled gauge prologue (measured 26.22% at
-        # ns=2 vs 26.25% at ns=4); 4 sweeps cost 390 s warm and
-        # starved the tail. e_per_site at 2 sweeps is less converged
-        # (comb256's 4-sweep row carries the convergence point).
+        # 2 sweeps: a throughput row; e_per_site at 2 sweeps is less
+        # converged (comb256's 4-sweep row carries the convergence
+        # point)
         ("comb_chi512", 150, lambda: _sec_comb(512, ns=2)),
         ("comb_tdvp_chi256", 150, lambda: _sec_comb_tdvp(256)),
         ("tci_heavy", 160, _sec_tci_heavy),
@@ -638,64 +456,53 @@ def _sections():
 
 def main():
     global RESULT
+    import jax
 
-    # 1. headline (ladder fallback keeps the metric alive even if the
-    #    flagship engine is broken)
-    failures = []
-    for rung in (bench_dmrg_headline, bench_rrlu, bench_mpo_zipup):
+    from benchmarks.mxu import card_name_and_power_limit, device_peaks
+    from tensor4all_tpu.utils.compile_cache import use_compile_cache
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench: needs a GPU, JAX found {dev.platform!r}")
+    cache = use_compile_cache()
+    card = card_name_and_power_limit()
+    _log(f"card {card}; compile cache {cache}")
+
+    RESULT = bench_dmrg_headline()
+    detail = RESULT.setdefault("detail", {})
+    detail.update({"device_kind": dev.device_kind,
+                   "device_count": len(jax.devices()),
+                   "nvidia_smi": card,
+                   "published_peaks": device_peaks(dev.device_kind)})
+
+    skipped, failed = [], []
+    ratio = 1.0  # observed actual/estimate, EMA
+    for name, est, fn in _sections():
+        need = est * ratio * 1.15 + 10.0
+        if _left() < need:
+            skipped.append(name)
+            _log(f"skip {name}: need ~{need:.0f}s, left {_left():.0f}s")
+            continue
+        t0 = time.monotonic()
         try:
-            _log(f"headline rung {rung.__name__}")
-            RESULT = rung()
-            break
-        except Exception as e:  # noqa: BLE001 — fall down the ladder
+            _log(f"section {name} (est {est}s, left {_left():.0f}s)")
+            detail.update(fn())
+        except Exception as e:  # noqa: BLE001 — record, exit 1 at the end
             import traceback
 
-            msg = f"{rung.__name__}: {type(e).__name__}: {e}"
-            failures.append(msg)
-            _log(f"rung failed: {msg}")
+            failed.append(name)
+            detail[f"{name}_error"] = f"{type(e).__name__}: {e}"
             traceback.print_exc(file=sys.stderr)
-    if not RESULT:
-        RESULT = {"metric": "error", "value": 0, "unit": "none",
-                  "vs_baseline": 0, "detail": {}}
-    detail = RESULT.setdefault("detail", {})
-    if failures:
-        detail["failed_rungs"] = failures
-
-    # 2. budgeted TPU detail sections
-    try:
-        import jax
-
-        on_tpu = jax.default_backend() != "cpu"
-    except Exception:  # noqa: BLE001
-        on_tpu = False
-
-    skipped = []
-    if on_tpu and not failures:
-        ratio = 1.0  # observed actual/estimate, EMA
-        for name, est, fn in _sections():
-            need = est * ratio * 1.15 + 10.0
-            if _left() < need:
-                skipped.append(name)
-                _log(f"skip {name}: need ~{need:.0f}s, "
-                     f"left {_left():.0f}s")
-                continue
-            t0 = time.monotonic()
-            try:
-                _log(f"section {name} (est {est}s, left {_left():.0f}s)")
-                detail.update(fn())
-            except Exception as e:  # noqa: BLE001
-                import traceback
-
-                detail[f"{name}_error"] = f"{type(e).__name__}: {e}"
-                traceback.print_exc(file=sys.stderr)
-            actual = time.monotonic() - t0
-            _log(f"section {name} took {actual:.1f}s")
-            ratio = min(max(0.5 * ratio + 0.5 * (actual / est), 0.05),
-                        3.0)
+        actual = time.monotonic() - t0
+        _log(f"section {name} took {actual:.1f}s")
+        ratio = min(max(0.5 * ratio + 0.5 * (actual / est), 0.05), 3.0)
     if skipped:
         detail["skipped_sections"] = skipped
-
     _emit()
+    if failed:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""TCI2 on the TPU (VERDICT r3 #3, north-star config 2).
+"""TCI2 on the accelerator (BASELINE config 2 and a heavy integrand).
 
 Measures crossinterpolate2 with the jittable-f device paths against the
 host-numpy batch path, on two configs:
@@ -174,8 +174,7 @@ def run(reps: int = 3, heavy_reps: int = 1, heavy_host: bool = True):
             one("tci_cfg2_jaxf", 10, 1e-8, False, "jaxf", reps=reps)
             one("tci_cfg2_fused", 10, 1e-8, False, "fused", reps=reps)
     if heavy_host and heavy_reps:
-        # 225 s on the 1-core host VM — skipped inside the driver bench
-        # (committed measurement: results/2026-08-21-tci-device.md)
+        # minutes on one host core: skipped inside bench.py
         one("tci_heavy_host", 64, 1e-9, True, "host", reps=heavy_reps)
     if not on_cpu and heavy_reps:
         one("tci_heavy_jaxf", 64, 1e-9, True, "jaxf", reps=heavy_reps)
@@ -186,9 +185,8 @@ def run(reps: int = 3, heavy_reps: int = 1, heavy_host: bool = True):
 
 if __name__ == "__main__":
     import json
-    import os
 
-    os.environ.setdefault(
-        "T4A_COMPILE_CACHE",
-        os.path.expanduser("~/.cache/t4a_xla_bench"))
+    from tensor4all_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     print(json.dumps(run()))

@@ -957,7 +957,7 @@ t4a_status_code t4a_tensor_select_indices(const t4a_tensor *t,
   return T4A_OK;
 }
 
-/* storage introspection: the TPU runtime is dense-only (SURVEY.md design
+/* storage introspection: the JAX runtime is dense-only (SURVEY.md design
  * stance: diag/structured fast paths are subsumed by XLA fusion) */
 t4a_status_code t4a_tensor_storage_kind(const t4a_tensor *t, int *out) {
   if (!t || !out) return T4A_INVALID_ARGUMENT;

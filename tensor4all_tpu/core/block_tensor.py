@@ -1,6 +1,6 @@
 """Block-structured tensors for block linear systems.
 
-TPU-native rebuild of tensor4all-core/src/block_tensor.rs:1-581
+JAX rebuild of tensor4all-core/src/block_tensor.rs:1-581
 (`BlockTensor`): a named collection of component tensors implementing the
 TensorVectorSpace protocol (axpby / inner / norm / scale), so block
 systems run through the same GMRES (core.krylov) unchanged — e.g. solving

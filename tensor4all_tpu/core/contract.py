@@ -1,11 +1,11 @@
 """N-ary contraction engine.
 
-TPU-native rebuild of the reference contraction choke point
+JAX rebuild of the reference contraction choke point
 (tensor4all-core/src/defaults/contract.rs:273 `contract`,
 tensorbackend/src/tenferro_bridge.rs einsum path): axes are matched by
 Index identity, lowered to one ``jnp.einsum`` call with opt_einsum path
 optimization (the role omeco plays in the reference). XLA then maps every
-pairwise contraction onto MXU ``dot_general``s and fuses the elementwise
+pairwise contraction onto ``dot_general``s and fuses the elementwise
 glue — the graph-compiler/buffer-pool caching of the reference's L0
 (context.rs:73-85) is exactly XLA's compilation cache here.
 """

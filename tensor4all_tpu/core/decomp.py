@@ -1,10 +1,10 @@
 """Tensor factorizations: SVD / QR / factorize + truncation.
 
-TPU-native rebuild of tensor4all-core/src/defaults/svd.rs:310 (`svd`),
+JAX rebuild of tensor4all-core/src/defaults/svd.rs:310 (`svd`),
 qr.rs:208 (`qr`), factorize.rs:80 (`factorize`), direct_sum.rs, and the
 truncation machinery (truncation.rs:25-208). Tensors are permuted/reshaped
 to matrices on-device (pure XLA transposes/reshapes), factorized with
-``jnp.linalg`` (CPU: LAPACK, TPU: XLA's QDWH/Householder paths), and
+``jnp.linalg`` (CPU: LAPACK, GPU: cuSOLVER), and
 truncated per policy. Rank decisions are data-dependent and made on host —
 the same place the reference makes them; inside hot sweeps callers can pass
 ``maxdim``-only policies to keep shapes static.

@@ -1,6 +1,6 @@
 """Identity-carrying tensor indices.
 
-TPU-native rebuild of the reference index system
+JAX rebuild of the reference index system
 (tensor4all-core/src/defaults/index.rs:27,65 `DynId`/`Index`,
 tagset.rs `TagSet`, index_like.rs:1-417 `IndexLike`): an ``Index`` is pure
 host-side metadata — a 64-bit identity, a dimension, a prime level, string

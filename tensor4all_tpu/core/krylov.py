@@ -1,6 +1,6 @@
 """Krylov solvers generic over a tensor vector space.
 
-TPU-native rebuild of tensor4all-core/src/krylov.rs (`gmres` :889,
+JAX rebuild of tensor4all-core/src/krylov.rs (`gmres` :889,
 `hermitian_lanczos_lowest_eigenpair` :484, `hermitian_krylov_expm_multiply`
 :640, restarted GMRES with truncation :2213).
 

@@ -1,6 +1,6 @@
 """Dynamic-rank tensor keyed by identity-carrying indices.
 
-TPU-native rebuild of the reference's ``TensorDynLen``
+JAX rebuild of the reference's ``TensorDynLen``
 (tensor4all-core/src/defaults/tensordynlen.rs:457: Vec<DynIndex> +
 Arc<Storage>): here a tuple of :class:`Index` labels the axes of a dense
 ``jax.Array``. The host keeps only the index bookkeeping; all numerics are
@@ -101,7 +101,7 @@ class Tensor:
         """Diagonal matrix tensor from a vector of values (ref diag storage).
 
         The reference keeps a structured diagonal Storage
-        (tensorbackend/src/storage.rs `axis_classes`); on TPU we materialize
+        (tensorbackend/src/storage.rs `axis_classes`); here we materialize
         dense — XLA fuses the construction and bond dims here are O(chi).
         """
         values = jnp.asarray(values)

@@ -1,7 +1,7 @@
 """TensorLike protocol family — the abstraction algorithms are generic
 over.
 
-TPU-native rebuild of tensor4all-core/src/tensor_like.rs
+JAX rebuild of tensor4all-core/src/tensor_like.rs
 (`TensorIndex` :520, `TensorVectorSpace` :579, `TensorContractionLike`
 :619, `TensorFactorizationLike` :637, `TensorConstructionLike` :791,
 umbrella `TensorLike`): in Python these are `typing.Protocol`s checked

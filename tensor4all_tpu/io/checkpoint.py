@@ -1,10 +1,10 @@
 """Checkpoint / resume for long-running TCI optimizations.
 
-TPU-native extension of the reference's persistence story (SURVEY.md
+JAX extension of the reference's persistence story (SURVEY.md
 §5.4): the reference's de-facto resume path is rebuilding TCI2 state from
 a TT (conversion.rs); here we ALSO checkpoint the live pivot state
 (orbax-style: a directory with a JSON manifest + npz payloads) so long
-interpolations on preemptible TPU slices can resume exactly.
+interpolations on preemptible machines can resume exactly.
 """
 
 from __future__ import annotations

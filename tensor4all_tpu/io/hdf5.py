@@ -1,6 +1,6 @@
 """ITensors.jl-compatible HDF5 serialization.
 
-TPU-native rebuild of tensor4all-hdf5 (crates/tensor4all-hdf5/src/
+JAX rebuild of tensor4all-hdf5 (crates/tensor4all-hdf5/src/
 lib.rs:150-395 `save/load_itensor`, `save/load_mps`; schema.rs type/version
 attributes; index.rs Index/IndexSet groups; itensor.rs Dense storage;
 mps.rs MPS metadata). The on-disk layout follows the ITensors.jl schema:

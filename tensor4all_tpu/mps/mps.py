@@ -1,6 +1,6 @@
 """ITensorMPS-style MPS/MPO layer over TreeTN chains.
 
-TPU-native rebuild of tensor4all-itensorlike
+JAX rebuild of tensor4all-itensorlike
 (crates/tensor4all-itensorlike/src/tensortrain.rs:125-1925 `TensorTrain`
 with llim/rlim, `from_treetn` :337, `orthogonalize` :1073, `truncate`
 :1152, `inner` :1215; contract.rs:1-156 `ContractMethod`; linsolve.rs:34):

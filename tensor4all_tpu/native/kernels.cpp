@@ -1,6 +1,6 @@
 // Native host kernels for latency-bound small-matrix hot loops.
 //
-// TPU-native rebuild of tensor4all-tcicore's dense pivot kernels
+// JAX rebuild of tensor4all-tcicore's dense pivot kernels
 // (crates/tensor4all-tcicore/src/matrixlu.rs:69 `RrLU`, :713
 // `rrlu_inplace`): the full-pivot rank-revealing LU loop is sequential
 // and data-dependent — on-device it belongs to the jitted while_loop

@@ -1,6 +1,6 @@
 """Adaptive Cross Approximation (ACA) of matrices.
 
-TPU-native rebuild of tensor4all-tcicore/src/matrixaca.rs:80 `MatrixACA`
+JAX rebuild of tensor4all-tcicore/src/matrixaca.rs:80 `MatrixACA`
 (the legacy TCI1 pivot engine): rank-1 residual updates with full-pivot
 selection — each pivot is the argmax over the entire current residual
 (stronger than the reference's rook walk, at the cost of touching the

@@ -3,29 +3,28 @@
 This is the bucket-and-mask design of SURVEY.md §7 applied to DMRG: every
 MPS core is zero-padded to a static (chi, d, chi) shape (boundaries
 embedded at slot 0), so an ENTIRE multi-sweep DMRG run is one XLA program
-— no host round trips, no recompilation as ranks grow, every kernel on
-the MXU.
+— no host round trips, no recompilation as ranks grow.
 
-TPU precision strategy (SURVEY.md §7 hard part 4, measured on a v5e):
-f64 einsums are ~100x slower than f32 (x64 is emulated) and the native
-SVD/eigh kernels are both slow (25 ms per 64x64 SVD inside a program) and
-only ~f32-accurate even in f64. The engine therefore runs the sweep hot
-loop in a configurable ``sweep_dtype`` (f32 on TPU) and recovers full
-accuracy from variational structure: the final energy is a global f64
-Rayleigh quotient <psi|H|psi>/<psi|psi> of the optimized MPS, so a state
-error eps from the f32 sweeps costs only O(eps^2) ~ 1e-12 in the energy.
+Precision strategy (SURVEY.md §7 hard part 4): the engine runs the sweep
+hot loop in a configurable ``sweep_dtype`` (f32 for speed) and recovers
+full accuracy from variational structure: the final energy is a global
+f64 Rayleigh quotient <psi|H|psi>/<psi|psi> of the optimized MPS, so a
+state error eps from the f32 sweeps costs only O(eps^2) ~ 1e-12 in the
+energy. That argument needs f32-grade matmuls in the sweeps: on a GPU,
+``"high"`` is TF32 (10-bit mantissa), so the accurate settings are
+``"highest"`` or an ``*_X3`` dot-algorithm preset.
 
-Two-site splits avoid the native SVD entirely: a warm-started subspace
+Two-site splits avoid the SVD entirely: a warm-started subspace
 iteration (2 steps of Y <- theta theta^T Y + QR) extracts the dominant
 chi-dimensional bond basis. Since the padded engine always keeps exactly
 chi directions, only the *span* matters, never the singular-value order —
-QR (accurate in all dtypes on TPU) is the only factorization needed.
+QR is the only factorization needed.
 
 Local eigensolver: fixed-iteration Lanczos on the two-site block with the
 (chi, w, chi) environments applied as one einsum per iteration; the small
-tridiagonal Ritz problem is solved by native eigh in f64 with a
-well-scaled inactive-diagonal sentinel (huge sentinels like 1e8 break the
-TPU's iterative eigh).
+tridiagonal Ritz problem is solved by Sturm bisection (or eigh) in f64
+with a well-scaled inactive-diagonal sentinel (huge sentinels like 1e8
+cost eigh its accuracy).
 
 The flexible host-driven TreeTN DMRG (treetn.dmrg) shares the same
 algorithm; this engine is the speed-of-light path for chain topologies
@@ -62,12 +61,11 @@ def _colnorm_qr(Y):
     The subspace-iteration splits feed QR matrices whose columns span
     11+ orders of magnitude when theta is rank-deficient (live rank r
     << chi: the trailing chi - r columns of mat (mat^H Q0) are pure
-    rounding noise at ~1e-11..1e-14 of the leading scale). The TPU f32
-    Householder kernel loses orthonormality CATASTROPHICALLY on that
-    dynamic range (measured orth errors 7.6e2 / 6.2e1 on captured
-    failing operands at N=16 chi=128 and N=32 chi=256 — the one-site
-    expm then amplified the spurious directions by e^35 and NaN'd the
-    run). Equilibration is EXACT for subspace iteration (only the span
+    rounding noise at ~1e-11..1e-14 of the leading scale). An f32
+    Householder kernel can lose orthonormality catastrophically on that
+    dynamic range (seen on an earlier accelerator at N=16 chi=128 and
+    N=32 chi=256; the one-site expm then amplified the spurious
+    directions and NaN'd the run). Equilibration is EXACT for subspace iteration (only the span
     matters): columns above 10*eps(dtype) of the max norm are scaled to
     unit; columns below it are pure noise and are ZEROED — Householder
     assigns zero columns an orthonormal completion (verified on the
@@ -88,14 +86,14 @@ def _cholqr(Y, shifts=(1e-4, 1e-6, 0.0)):
     """GEMM-only orthonormal basis of Y's column span: column-
     equilibrated SHIFTED CholeskyQR, one pass per entry of ``shifts``.
 
-    Drop-in replacement for `_colnorm_qr` on the MXU: the Householder
-    QR of a (chi d, chi) panel costs ~2.5 ms at chi=512 on a v5e while
-    a CholeskyQR pass is 2 GEMMs + a chi x chi Cholesky + a triangular
-    solve (~0.2 ms). Numerics (Fukaya et al., shifted CholeskyQR3):
+    Drop-in replacement for `_colnorm_qr`: a CholeskyQR pass is 2 GEMMs
+    + a chi x chi Cholesky + a triangular solve, where a Householder QR
+    of a (chi d, chi) panel is a long chain of small panel updates.
+    Numerics (Fukaya et al., shifted CholeskyQR3):
     pass k forms the Gram G = Q^H Q at f32 HIGHEST precision
     (independent of the surrounding sweep's matmul-precision default —
     a bf16-pass Gram has an ~1e-3 noise floor that no safe shift
-    clears, the measured r3 failure mode), adds ``shifts[k] * tr(G)/q``
+    clears), adds ``shifts[k] * tr(G)/q``
     to the diagonal, and replaces Q by Q R^{-1}. The first generous
     shift caps the working condition number at ~sqrt(q / shift) (inside
     the f32 CholeskyQR2 domain cond <~ 1/sqrt(eps)); the later passes
@@ -121,8 +119,8 @@ def _cholqr(Y, shifts=(1e-4, 1e-6, 0.0)):
         # rank <= d^k << chi) have CORRELATED equilibrated columns, so
         # ||G||_2 ~ tr(G) and the Gram's rounding pushes eigenvalues
         # ~ -eps ||G||_2 below zero — a mean-diag-only shift
-        # under-covers that and the Cholesky NaNs (measured on TPU at
-        # N=32 chi=512). The floor is ~4e-6 once G ~ I, so the
+        # under-covers that and the Cholesky NaNs (seen at N=32
+        # chi=512). The floor is ~4e-6 once G ~ I, so the
         # cascade's tail still restores weak directions.
         tr = jnp.trace(jnp.real(G))
         gn = jnp.max(jnp.sum(jnp.abs(G), axis=1))
@@ -149,18 +147,16 @@ def pad_mpo(cores: List[jnp.ndarray]) -> jnp.ndarray:
 def _tridiag_ground(diag: jnp.ndarray, offd: jnp.ndarray,
                     n_grid: int = 64, n_rounds: Optional[int] = None,
                     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Ground eigenpair of a symmetric tridiagonal matrix, TPU-fast.
+    """Ground eigenpair of a symmetric tridiagonal matrix, GEMM-free.
 
-    ``jnp.linalg.eigh`` on an m x m tridiagonal costs ~555 us per call on
-    a v5e even at m=16 (f64 is emulated AND the kernel is an iterative
-    full-spectrum factorization) — and the DMRG/TDVP engines run it once
-    per two-site update inside the sweep scan, where it was ~8% of fine-
-    and ~24% of coarse-update wall time (benchmarks/profile_dmrg2.py).
-    The engines only need the SMALLEST eigenpair, so this uses:
+    ``jnp.linalg.eigh`` on an m x m tridiagonal is a full-spectrum
+    iterative factorization — and the DMRG/TDVP engines run it once per
+    two-site update inside the sweep scan. The engines only need the
+    SMALLEST eigenpair, so this uses:
 
       1. Sturm-sequence bisection, vectorized over ``n_grid`` candidate
-         shifts per round (the m-step recurrence runs as a lax.scan over
-         (n_grid,) lanes — pure elementwise VPU work). ``n_rounds``
+         shifts per round (the m-step recurrence runs over (n_grid,)
+         lanes — pure elementwise work). ``n_rounds``
          rounds shrink the Gershgorin bracket by grid^rounds ~ 2^24.
       2. Tridiagonal inverse iteration (Thomas solve, scalar scan) at the
          converged lower bracket edge — count(lo)=0 keeps T - lo*I
@@ -198,7 +194,7 @@ def _tridiag_ground(diag: jnp.ndarray, offd: jnp.ndarray,
     eps = jnp.asarray(jnp.finfo(dt).eps, dt)
 
     # everything below unrolls over the (static, small) m: straight-line
-    # elementwise code fuses into a handful of VPU loops, where a
+    # elementwise code fuses into a handful of loops, where a
     # lax.scan would pay ~1-2 us of sequential-step overhead per site
 
     def sturm_counts(xs):
@@ -326,32 +322,30 @@ def dmrg_run(
       h: (N, w, d, d, w) padded MPO (boundary slots 0).
       mps0: (N, chi, d, chi) padded MPS.
       sweep_dtype: dtype for the sweep hot loop (default: same as input;
-        pass ``jnp.float32`` on TPU — the final energy is refined to a
+        pass ``jnp.float32`` for speed — the final energy is refined to a
         full-precision global Rayleigh quotient regardless).
       coarse_sweeps: run the FIRST `coarse_sweeps` sweeps with fast
-        matmuls (one bf16 MXU pass per f32 matmul, ~1e-3 precision) and
+        matmuls (the "default" matmul precision) and
         a single subspace iteration per split. DMRG is variational and
         self-correcting: the remaining full-precision sweeps re-factorize
         every core and restore the eps_f32-grade state, so the final
         energy (f64 Rayleigh quotient, error O(eps^2)) is unchanged while
-        the chi^3 hot loop runs near the chip's bf16 rate for most of
-        the run.
+        the chi^3 hot loop runs at the fast rate for most of the run.
       coarse_lanczos_iters: Lanczos depth for the coarse sweeps
         (default: same as fine). Early sweeps only need rough local
         progress; the reference's own eigensolver runs krylovdim=3.
       coarse_bf16: store the Lanczos basis and apply operands in
         bfloat16 during coarse sweeps — halves the HBM traffic of the
-        bandwidth-bound reortho/apply loop (accumulation stays f32 via
-        the MXU).
+        bandwidth-bound reortho/apply loop (accumulation stays f32).
       coarse_reortho: full per-iteration reorthogonalization in coarse
         sweeps; False keeps the plain 3-term recurrence (the reortho
-        reads cost MORE than the H apply at chi=512 — r3 profile).
+        reads can cost more than the H apply at large chi).
       coarse_ns_split: orthogonalize coarse two-site splits by the
         GEMM-only Newton-Schulz inverse-sqrt iteration instead of
-        Householder QR (~2.5 ms per (chi d, chi) QR on a v5e).
+        Householder QR.
       fine_precision: matmul precision of the fine sweeps ('highest' =
-        6-pass f32; 'high' = 3-pass, ~1.4x faster applies, state error
-        ~1e-6 -> energy eps^2 ~1e-12).
+        f32-grade products; 'high' is TF32 on a GPU, a 10-bit mantissa,
+        too coarse for the eps^2 energy argument).
       fine_reortho: full reorthogonalization in the fine sweeps
         (default True). The reference's own local eigensolver runs
         krylovdim=3 with no reorthogonalization at all
@@ -365,12 +359,11 @@ def dmrg_run(
       gemm2_apply: contract the local H as TWO large GEMMs per Lanczos
         iteration against per-bond precontracted L*Wl / Wr*R operands
         (2x the FLOPs of the minimal 4-stage einsum path, but no small-K
-        (w d) MXU passes and no 5-tensor intermediate shuffles — faster
-        on TPU for chi >= 256).
+        (w d) GEMMs and no 5-tensor intermediate shuffles).
       fine_ns_inner: use the GEMM-only Newton-Schulz orthogonalization
         for the INNER subspace-iteration steps of fine-sweep splits
-        (the final factor stays Householder QR either way). ~9% faster
-        at chi=512 on a v5e but the NS residual (~1e-6 orthonormality)
+        (the final factor stays Householder QR either way). Faster, but
+        the NS residual (~1e-6 orthonormality)
         costs ~1e-9 in the final energy at N=8 — leave False when the
         reference's 1e-12 energy-parity contract matters. Coarse sweeps
         always use NS inner steps (self-correcting).
@@ -378,42 +371,33 @@ def dmrg_run(
         per two-site update inside the sweep scan. 'bisect' (default):
         Sturm bisection + inverse iteration (_tridiag_ground) in f64,
         ground pair identical to eigh to ~1e-13. 'bisect_f32': the same
-        in native f32 (f64 elementwise is emulated on TPU; coefficient
-        error ~eps_f32 matches the f32 basis grade — the final energy is
-        an f64 Rayleigh quotient either way). 'eigh': the LAPACK-style
-        iterative kernel (~555 us/update on a v5e).
+        in f32 (coefficient error ~eps_f32 matches the f32 basis grade —
+        the final energy is an f64 Rayleigh quotient either way). 'eigh':
+        the LAPACK-style iterative kernel.
       energy_precision: dtype of the FINAL global Rayleigh quotient.
-        'f64' (default): emulated-f64 einsums — evaluation error ~eps_f64
-        so the reported energy carries the full O(eps_sweep^2) variational
-        grade (the 1e-12 parity contract at small sizes; cheap there).
-        'mixed': the transfer scan runs in f32 with 6-pass 'highest'
-        matmuls and f64 final scalars — evaluation error ~sqrt(N K) eps_f32
-        ~1e-6 RELATIVE, which DOMINATES the eps^2 state term. At N=32
-        chi=512 the f64 scan costs 525 ms of emulated-f64 GEMMs (measured,
-        benchmarks/probe_rayleigh.py) vs 51 ms mixed — 38% of the whole
-        4-sweep production run — so 'mixed' is the production setting
-        wherever ~1e-6-relative energies suffice (the state itself is
-        identical; re-evaluate with 'f64' offline when needed).
+        'f64' (default): f64 einsums — evaluation error ~eps_f64 so the
+        reported energy carries the full O(eps_sweep^2) variational grade
+        (the 1e-12 parity contract at small sizes). 'mixed': the transfer
+        scan runs in f32 with 'highest' matmuls and f64 final scalars —
+        evaluation error ~sqrt(N K) eps_f32 ~1e-6 RELATIVE, which
+        dominates the eps^2 state term; the state itself is identical
+        (re-evaluate with 'f64' when needed).
       fine_split_iters: subspace-iteration steps per fine-sweep split
         (default 2). The splits are warm-started from the current core,
         so on a nearly-converged state ONE step already captures the
         dominant span; 1 halves the fine sweep's QR-panel fixed cost.
-        Accuracy bar: energy parity measured in the r4 grid.
       fine_cholqr: orthonormalize fine-sweep splits with shifted
         CholeskyQR (`_cholqr`, GEMM-only: Gram at f32 HIGHEST + shifted
         Cholesky + triangular solve) instead of Householder QR panels.
-        Unlike the r3 shifted-CholeskyQR attempt (which NaN'd because
-        the coarse sweeps' single-bf16-pass default poisoned the Gram —
-        see the NOTE in split_theta), `_cholqr` pins the Gram/solve to
-        f32 HIGHEST regardless of the sweep default and equilibrates
-        columns first; the final factor reaches f32-grade orthogonality
-        for full-rank thetas. Accuracy bar: energy parity vs the
-        Householder path measured in the r4 grid.
+        `_cholqr` pins the Gram/solve to f32 HIGHEST regardless of the
+        sweep default (a low-precision Gram NaNs the Cholesky, see the
+        NOTE in split_theta) and equilibrates columns first; the final
+        factor reaches f32-grade orthogonality for full-rank thetas.
     Returns (energy, optimized padded MPS in sweep_dtype).
     """
     coarse_sweeps = min(coarse_sweeps, n_sweeps)
-    # TPU MXU default precision for f32 matmuls is bf16 passes (~1e-3
-    # error) — the FINE sweeps need true f32 accumulation for the
+    # the "default" f32 matmul precision is below f32 grade on
+    # accelerators — the FINE sweeps need f32-grade products for the
     # variational eps^2 refinement argument to hold.
     mps = mps0
     if coarse_sweeps > 0:
@@ -453,8 +437,8 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
     hi_dtype = mps0.dtype
     st = jnp.dtype(sweep_dtype) if sweep_dtype is not None else hi_dtype
     # compute/storage dtype of the Lanczos hot loop: bf16 halves the
-    # HBM traffic of the bandwidth-bound basis reads/writes; the MXU
-    # accumulates in f32 either way, and scalar recurrences stay f64
+    # HBM traffic of the bandwidth-bound basis reads/writes; GEMMs
+    # accumulate in f32 either way, and scalar recurrences stay f64
     ct = jnp.bfloat16 if (store_bf16 and st == jnp.float32) else st
     hs = h.astype(st)
     # Normalize every core BEFORE the precision cast: scaling cores only
@@ -487,7 +471,7 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
         in f64 with a well-scaled sentinel on inactive slots. The basis
         is stored in `ct` (bf16 under coarse_bf16): its reads/writes are
         the bandwidth bound of the loop, and mixed-dtype einsums keep
-        f32 accumulation on the MXU."""
+        f32 accumulation."""
         Lc, Wlc = L.astype(ct), Wl.astype(ct)
         Wrc, Rc = Wr.astype(ct), R.astype(ct)
 
@@ -499,8 +483,7 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
             #   y [(x p),(q B)]   = T1[(x p),(m j b)] . RW[(m j b),(q B)]
             # with shapes (chi d w, chi d) x (chi d, d chi) and
             # (chi d, w d chi) x (w d chi, d chi): M, N, K are all
-            # >= chi d — no (w d)-sized contraction pass ever touches
-            # the MXU (which pads every K/N up to 128 lanes).
+            # >= chi d — no (w d)-sized contraction.
             LW = jnp.einsum("alx,lpim->aixpm", Lc, Wlc)
             RW = jnp.einsum("mqjr,brB->mjbqB", Wrc, Rc)
 
@@ -517,11 +500,10 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
                 return y.astype(st)
 
         v0 = norm_site(theta0)
-        # PYTHON-UNROLLED over the static Lanczos depth (r4, mirrors
+        # PYTHON-UNROLLED over the static Lanczos depth (mirrors
         # ops.tdvp_chain.lanczos_expm): the fori_loop form's dynamic
-        # basis update + emulated-f64 scalar chain sat on the critical
-        # path between the apply GEMMs (~66 us/iteration of non-GEMM
-        # overhead in the r3 fine-sweep slope profile). Recurrence
+        # basis update + scalar chain sat on the critical path between
+        # the apply GEMMs. Recurrence
         # scalars run at the sweep's real grade; the m x m Ritz solve
         # below consumes them at its own grade as before.
         sdt = real_st
@@ -560,7 +542,7 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
         amask = jnp.stack(amask).astype(jnp.float64)
         # well-scaled sentinel: inactive diagonal sits just above the
         # active spectrum so eigh's minimum stays in the active block
-        # without wrecking its (iterative, TPU) accuracy
+        # without wrecking its (iterative) accuracy
         big = jnp.where(amask > 0, alphas, -jnp.inf).max()
         small = jnp.where(amask > 0, alphas, jnp.inf).min()
         bmax = jnp.abs(betas).max()
@@ -569,9 +551,9 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
         if ritz == "bisect":
             e0, coef = _tridiag_ground(diag, betas)
         elif ritz == "bisect_f32":
-            # f64 elementwise is EMULATED on TPU and the bisect unrolls
-            # ~hundreds of tiny scalar/vector ops: running them native
-            # f32 halves the per-op cost. Ritz-coefficient error ~eps_f32
+            # the bisect unrolls ~hundreds of tiny scalar/vector ops;
+            # f32 runs them cheaper where f64 is slow. Ritz-coefficient
+            # error ~eps_f32
             # enters the state linearly (same grade as the f32 basis
             # itself); the reported e0 is refreshed by the final f64
             # Rayleigh quotient regardless.
@@ -600,16 +582,14 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
         # directly underflows f32 once most kept singular values drop
         # below sqrt(eps_f32) ~ 2e-4 — at N >= 32, chi >= 128 that is
         # the bulk of the spectrum, and the sweep silently diverged
-        # (garbage energies on CPU f32, NaN on TPU).
+        # (garbage energies or NaN in f32).
         mat = theta.reshape(chi * d, d * chi)
         # NOTE: Householder QR is the accurate default — a shifted-
-        # CholeskyQR variant (MXU-friendly) was measured 14% faster at
-        # chi=512 but NaN'd under bf16-pass coarse precision (the
-        # Gram's noise exceeds any safe PD shift at chi=512); QR is
-        # robust at every precision the schedule uses. Under ns_split
-        # (coarse sweeps only) orthogonalization runs as the GEMM-only
-        # coupled Newton-Schulz inverse-sqrt instead (~2.5 ms per
-        # (chi d, chi) Householder QR on a v5e vs ~0.2 ms of GEMMs):
+        # CholeskyQR at the sweep's precision NaN'd under bf16-pass
+        # coarse precision (the Gram's noise exceeds any safe PD shift
+        # at chi=512); QR is robust at every precision the schedule
+        # uses. Under ns_split (coarse sweeps only) orthogonalization
+        # runs as the GEMM-only coupled Newton-Schulz inverse-sqrt:
         # division-free, so bf16-pass noise perturbs but cannot NaN it,
         # and the trace regularizer keeps rank-deficient padded thetas
         # finite (under-orthonormalized directions carry ~zero weight
@@ -640,7 +620,7 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
         elif cholqr:
             orth = _cholqr  # GEMM-only shifted CholeskyQR (fine_cholqr)
         else:
-            orth = _colnorm_qr  # column-equilibrated: rank-deficient-safe on TPU
+            orth = _colnorm_qr  # column-equilibrated: rank-deficient-safe
 
         # INNER orthogonalizations only exist to keep the subspace
         # iteration's intermediates well-conditioned in the sweep dtype
@@ -809,8 +789,7 @@ def _dmrg_sweeps(h, mps0, n_sweeps, lanczos_iters, sweep_dtype,
     # Full-precision global Rayleigh quotient: a sweep-dtype state error
     # eps costs only O(eps^2) here (variational bound). Under 'mixed' the
     # quotient itself is evaluated at f32-'highest' grade (~1e-6 relative,
-    # see dmrg_run docstring) — 51 ms vs 525 ms of emulated f64 at N=32
-    # chi=512.
+    # see dmrg_run docstring).
     if energy_precision == "mixed":
         lo = (jnp.complex64
               if jnp.issubdtype(hi_dtype, jnp.complexfloating)
@@ -831,7 +810,7 @@ def dmrg_run_sharded(
     sweep_dtype=None,
     axis: str = "x",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """chi-partitioned flagship DMRG engine (VERDICT r2 #6): the whole
+    """chi-partitioned flagship DMRG engine: the whole
     two-site sweep runs inside ONE `shard_map` over `mesh`, with explicit
     collectives instead of GSPMD placement guesses.
 
@@ -967,7 +946,7 @@ def dmrg_run_sharded(
             # single-device wall time on a small term
             theta = gather(theta_l)
             mat = theta.reshape(chi * d, d * chi)
-            orth = _colnorm_qr  # column-equilibrated: rank-deficient-safe on TPU
+            orth = _colnorm_qr  # column-equilibrated: rank-deficient-safe
             if toward_right:
                 Q_ = Q0
                 for _ in range(split_iters):
@@ -1094,15 +1073,15 @@ def dmrg_sweep_flops(N: int, chi: int, d: int, w: int,
                      fine_half_sweep: bool = False,
                      fine_split_iters: int = 2,
                      fine_cholqr: bool = False) -> float:
-    """Analytic FLOP count of ``dmrg_run``'s sweep loop (VERDICT r1 #1:
-    MFU must be measured on the REAL engine, not a synthetic kernel).
+    """Analytic FLOP count of ``dmrg_run``'s sweep loop (rates are
+    measured on the real engine, not a synthetic kernel).
 
     Einsum terms use opt_einsum's contraction-path cost model on the
     exact expressions/shapes the engine executes; QR terms use the
     standard Householder count 2pq^2; Newton-Schulz orthogonalization
     counts its GEMMs (Gram + 3 matmuls x 4 iterations + apply). The
     knob parameters MUST mirror the dmrg_run call being measured
-    (ADVICE r2: a schedule/model mismatch overstates throughput).
+    (a schedule/model mismatch overstates throughput).
     """
     import opt_einsum as oe
 

@@ -1,15 +1,14 @@
 """Fully-jitted two-site DMRG engine for COMB trees at production chi:
 a backbone chain of Nb physical sites, each carrying a tooth (chain
 leg) of Mt physical sites — the first genuinely tree-topology engine
-whose backbone bond dimension is MXU-scale (chi = 128..512), closing
-the round-3 gap "trees have no production-chi device path"
-(VERDICT r3 missing #1 / next #4).
+whose backbone bond dimension is GEMM-scale (chi = 128..512), closing
+the gap "trees have no production-chi device path".
 
 Reference scope: the reference's tree DMRG sweeps arbitrary
 ITensorNetworks-style trees through per-region plans
 (tensor4all-treetn/src/tdvp/plan.rs:1-379, dmrg benchmarks in
 results/2026-06-27-treetn-dmrg-itensornetworks.md); its per-local-op
-dispatch model is exactly what a TPU cannot afford. Here the
+dispatch model is exactly what an accelerator cannot afford. Here the
 `ops.dmrg_chain` bucket-and-mask design is applied to the comb family:
 every core lives in a fixed-shape stack, every sweep is `lax.scan`
 over the backbone with the tooth work unrolled inside (Mt is small
@@ -23,7 +22,7 @@ a real knob, while tooth bonds are Schmidt-bounded by d**(tooth sites
 below), so modest chit (or even exact chit = d**Mt) loses nothing.
 The backbone two-site theta is (chi, d*chit, d*chit, chi) — a chain
 theta with effective site dimension d*chit, i.e. LARGER GEMMs than the
-d=2 chain at the same chi, which the MXU prefers.
+d=2 chain at the same chi, which the matrix units prefer.
 
 Layout (uniform padded stacks, boundaries at slot 0 as in
 ops.dmrg_chain.pad_mpo):
@@ -219,10 +218,10 @@ def dmrg_comb_run(
       gemm2_apply: two-GEMM backbone applies via per-solve
         precontraction (ops.dmrg_chain.lanczos_ground docstring); the
         comb's effective site dimension d*chit makes these GEMMs
-        MXU-shaped even at chi = 128.
+        large even at chi = 128.
       ritz_solver: 'bisect' | 'bisect_f32' | 'eigh' (as in dmrg_run).
-      energy_precision: 'f64' exact final Rayleigh quotient (emulated
-        f64 GEMM scans on TPU) or 'mixed' (f32-highest scans, f64
+      energy_precision: 'f64' exact final Rayleigh quotient (f64 GEMM
+        scans) or 'mixed' (f32-highest scans, f64
         accumulation of the scalar reduction) — same trade documented
         at ops.dmrg_chain.dmrg_run.
       precision: matmul precision for the sweeps.

@@ -12,7 +12,8 @@ exponential computed by GEMM-only scaling-and-squaring
 (_expm_tridiag_e0). Splits reuse the warm-started
 subspace-QR of the DMRG engine (top-chi subspace == TDVP's built-in
 truncation). Precision strategy as in dmrg_chain: pass
-``sweep_dtype=jnp.complex64`` on TPU; the state error eps from the lower
+``sweep_dtype=jnp.complex64`` (or float32 for imaginary time) for speed;
+the state error eps from the lower
 precision costs only O(eps) in the trajectory (and observables built as
 Rayleigh quotients only O(eps^2)).
 """
@@ -37,14 +38,14 @@ def _expm_tridiag_e0(diag: jnp.ndarray, offd: jnp.ndarray, coeff,
                      max_squarings: int = 20) -> jnp.ndarray:
     """First column of ``exp(coeff * T)`` for symmetric tridiagonal T.
 
-    ``jnp.linalg.eigh`` on the m x m Ritz matrix costs ~555 us per call
-    on a v5e (iterative kernel + emulated f64) and the TDVP engine runs
-    it TWICE per bond. The propagator only needs exp(c T) e0, so this
+    ``jnp.linalg.eigh`` on the m x m Ritz matrix is an iterative
+    full-spectrum kernel and the TDVP engine runs it TWICE per bond.
+    The propagator only needs exp(c T) e0, so this
     uses GEMM-only scaling-and-squaring: scale A = c T / 2^s to
     ||A||_1 <= 0.5 (s data-dependent, applied as masked squarings so the
     program stays static), a 12-term Taylor-Horner evaluation (error
     <= 0.5^13/13! ~ 2e-14), then s masked squarings. Everything is m x m
-    matmuls — a few us total on the MXU at m <= 20.
+    matmuls at m <= 20.
 
     ``coeff`` may be real (imaginary time) or complex (real time on
     complex-capable backends); the arithmetic follows its dtype. Slots
@@ -103,10 +104,9 @@ def tdvp_run(
         ``orthogonalize=True`` (which runs the QR gauge sweep inside the
         program — keeps the whole call one device dispatch).
       t: total evolution (e.g. ``-1j*T`` for real time).
-      precision: matmul precision of the sweeps ('highest' = 6-pass f32
-        default; 'high' = 3 passes, ~1e-7-grade state per step — well
-        inside the trajectory contract when the projector-splitting
-        error dominates, and ~1.4x faster applies on TPU).
+      precision: matmul precision of the sweeps ('highest' = f32-grade
+        products, the default; 'high' is TF32 on a GPU, a 10-bit
+        mantissa).
       reortho: full per-iteration reorthogonalization of the Krylov
         basis (default True). False keeps the plain 3-term recurrence —
         for the SHORT-time local propagators here the Krylov space only
@@ -115,10 +115,9 @@ def tdvp_run(
         i.e. below the splitting error for production dt.
       gemm2_apply: contract the local H as two large GEMMs per Krylov
         iteration against per-bond precontracted L*Wl / Wr*R operands
-        (2x FLOPs, no small-K MXU passes — faster for chi >= 256, as in
-        ops.dmrg_chain.dmrg_run).
+        (2x FLOPs, no small-K GEMMs, as in ops.dmrg_chain.dmrg_run).
       bf16_tail: if > 0 (f32 sweeps only), Krylov iterations with index
-        ``i >= bf16_tail`` run their H-apply as SINGLE-PASS bf16 GEMMs
+        ``i >= bf16_tail`` run their H-apply as bf16 GEMMs
         against per-bond bf16-precast operands. Principled mixed
         precision: the propagator coefficient of basis vector k decays
         factorially, ``|coef_k| ~ (|dt| |H_eff|)^k / k!`` — for
@@ -142,11 +141,9 @@ def tdvp_run(
         conservative default).
       cholqr_split: orthonormalize the two-site splits and the initial
         gauge sweep by shifted CholeskyQR (GEMM-only, `_cholqr`)
-        instead of Householder QR panels. The r4 slope profile
-        attributes most of the engine's ~4.9 ms/bond fixed cost at
-        chi=512 to the QR panels; CholeskyQR replaces each ~2.5 ms
-        Householder panel with ~0.2 ms of GEMMs at f32-grade
-        orthonormality. Production-validated for full-rank states
+        instead of Householder QR panels: a few GEMMs in place of a
+        chain of small panel updates, at f32-grade orthonormality.
+        Validated for full-rank states
         (random inits); states with strongly rank-deficient thetas
         keep the Householder default (junk completion directions are
         only orthonormal to ~1e-2 under CholeskyQR — zero-amplitude,
@@ -168,9 +165,8 @@ def _tdvp_sweeps(h, mps0, t, nsteps, order, krylov_m, sweep_dtype,
     orth = _cholqr if cholqr_split else _colnorm_qr
     N, chi, d, _ = mps0.shape
     w = h.shape[1]
-    # real sweep dtypes are allowed for IMAGINARY-time evolution (real t)
-    # — the path that runs on TPUs without complex support; real-time
-    # evolution needs a complex dtype (CPU, or complex-capable TPUs).
+    # real sweep dtypes are allowed for IMAGINARY-time evolution (real t);
+    # real-time evolution needs a complex dtype.
     st = jnp.dtype(sweep_dtype) if sweep_dtype is not None else \
         jnp.result_type(mps0.dtype, jnp.complex64)
     hs = h.astype(st)
@@ -188,13 +184,10 @@ def _tdvp_sweeps(h, mps0, t, nsteps, order, krylov_m, sweep_dtype,
     def lanczos_expm(apply_pair, v0, coeff, shape, m):
         """exp(coeff*H) v0 by fixed-m Lanczos (ref krylov.rs:640).
 
-        PYTHON-UNROLLED over the static Krylov depth (r4): the previous
-        fori_loop + lax.cond form paid ~200 us of non-GEMM overhead per
-        two-site iteration at chi=512 (slope-measured,
-        benchmarks/profile_tdvp.py — ~60% of the engine's entire
-        fixed cost): the per-iteration dynamic basis update, the cond's
-        scheduling barrier, and emulated-f64 scalar chains all sit on
-        the critical path between GEMMs. Unrolling removes the loop and
+        PYTHON-UNROLLED over the static Krylov depth: in a fori_loop +
+        lax.cond form the per-iteration dynamic basis update, the cond's
+        scheduling barrier, and the scalar chains all sit on the
+        critical path between GEMMs. Unrolling removes the loop and
         cond entirely, lets XLA fuse the axpy/normalize chain into the
         apply epilogues, and runs the recurrence scalars at the sweep's
         real grade (f32 for f32 sweeps — the same grade the expm solve
@@ -240,14 +233,10 @@ def _tdvp_sweeps(h, mps0, t, nsteps, order, krylov_m, sweep_dtype,
         amask = jnp.stack(amask)
         # exp(coeff*T) e0 by GEMM-only scaling-and-squaring (dead slots
         # carry zero diag/offd and decouple; masked below for safety).
-        # Imaginary time keeps real arithmetic — the path that runs on
-        # TPUs without complex kernels.
-        # the small solve runs at the SWEEP grade (f32 when sweeping
-        # f32): f64 matmuls are emulated on TPU, so the 12-term Horner +
-        # squarings chain of m x m products was ~100x off its MXU cost
-        # in f64, once per bond per propagator. Coefficient error
-        # ~eps(real_st) enters the state linearly — the same grade as
-        # the Krylov basis itself. f64 sweeps keep the f64 solve.
+        # The small solve runs at the SWEEP grade (f32 when sweeping
+        # f32): coefficient error ~eps(real_st) enters the state
+        # linearly — the same grade as the Krylov basis itself. f64
+        # sweeps keep the f64 solve.
         if jnp.issubdtype(st, jnp.complexfloating):
             c = jnp.asarray(coeff, jnp.result_type(real_st, jnp.complex64))
         else:
@@ -263,11 +252,10 @@ def _tdvp_sweeps(h, mps0, t, nsteps, order, krylov_m, sweep_dtype,
         # Precontract the environments with their MPO cores ONCE per
         # local propagator (amortized over the m Krylov iterations) so
         # each iteration is two large GEMMs with every M/N/K >= chi*d —
-        # no (w d)-sized contraction pass ever touches the MXU (which
-        # pads small K/N up to 128 lanes). Same trade as
+        # no (w d)-sized contraction. Same trade as
         # ops.dmrg_chain.dmrg_run(gemm2_apply=True): 2x the minimal-path
-        # FLOPs, measurably faster on TPU for chi >= 256.
-        _P1 = jax.lax.Precision.DEFAULT  # single bf16 MXU pass
+        # FLOPs.
+        _P1 = jax.lax.Precision.DEFAULT  # fastest pass for bf16 operands
 
         def apply_h2(L, Wl, Wr, R):
             LW = jnp.einsum("alx,lpim->aixpm", L, Wl)
@@ -390,10 +378,10 @@ def _tdvp_sweeps(h, mps0, t, nsteps, order, krylov_m, sweep_dtype,
         carried core to unit norm at every step: the R-factor product
         of a per-core-normalized random chain decays like c^N (c<1), so
         by site 0 the entries reach ~1e-18 at N=32 — whose f32
-        sum-of-squares lands in the DENORMAL range that TPUs flush to
-        zero, turning the norm guard into a division by ~0 and NaN'ing
-        the whole evolution (found on TPU; CPUs keep denormals and hid
-        it). Max-abs first (flush-safe), then the 2-norm of the
+        sum-of-squares lands in the DENORMAL range that accelerators may
+        flush to zero, turning the norm guard into a division by ~0 and
+        NaN'ing the whole evolution (CPUs keep denormals and hide it).
+        Max-abs first (flush-safe), then the 2-norm of the
         O(1)-rescaled core."""
 
         def ortho_body(carry, k):
@@ -520,9 +508,8 @@ def bond_gemm_flops(chi: int, d: int, w: int):
     """Per-bond FLOPs of the two-GEMM (``gemm2_apply``) local applies:
     ``(apply2, apply1, pre2, pre1)``. apply2/apply1 are the per-Krylov-
     iteration two-site/one-site H·theta streams; pre2/pre1 the per-bond
-    MPO precontractions. Single source of truth shared by
-    ``tdvp_sweep_flops`` and ``benchmarks/tdvp_roofline.py`` (ADVICE
-    r4: the formulas were duplicated in three places and could silently
+    MPO precontractions. Single source of truth for
+    ``tdvp_sweep_flops`` (duplicated formulas could silently
     desynchronize from the engine)."""
     apply2 = (2.0 * (chi * d * w) * (chi * d) * (d * chi)
               + 2.0 * (chi * d) * (w * d * chi) * (d * chi))
@@ -543,7 +530,7 @@ def tdvp_sweep_flops(N: int, chi: int, d: int, w: int, krylov_m: int,
                      karatsuba: bool = False) -> float:
     """Analytic FLOP count of ``tdvp_run``'s sweep loop (same cost model
     as ops.dmrg_chain.dmrg_sweep_flops). The knob parameters MUST
-    mirror the tdvp_run call being measured (ADVICE r2).
+    mirror the tdvp_run call being measured.
 
     complex_dtype (the real/imag-split engine): complex-complex GEMM
     streams count 4x the real multiplies (3x under ``karatsuba`` —
@@ -612,13 +599,12 @@ def tdvp_chain(h_cores, init_cores, t, chi, nsteps=1, order=2,
     orthogonalization sweep is fused into it).
 
     ``engine``: 'auto' routes CPU backends to the host two-site engine
-    (ops.tdvp_chain_host) — measured crossover (r3, 1-thread CPU): the
+    (ops.tdvp_chain_host) — measured crossover (1-thread CPU): the
     jitted engine's fixed worst-case-shape work loses at EVERY size
     tested (N=8 chi=32: 576 vs 72 ms; N=16 chi=64: 7.1 s vs 0.89 s;
     N=16 chi=128: 68 s vs 3.3 s) and the gap widens with chi, so on CPU
-    there is no crossover — the jitted engine is a device design (TPU:
-    N=32 chi=256 in 631 ms where the host engine does not finish in
-    comparable time). 'jit'/'host' force an engine."""
+    there is no crossover — the jitted engine is a device design.
+    'jit'/'host' force an engine."""
     import numpy as np
 
     if engine == "auto":
@@ -694,9 +680,9 @@ def tdvp_run_sharded(
     """chi-partitioned flagship TDVP engine: the whole projector-splitting
     sweep runs inside ONE `shard_map` over `mesh` with explicit
     collectives — the time-evolution counterpart of
-    ops.dmrg_chain.dmrg_run_sharded (VERDICT r2 #6 asked for BOTH
-    flagship engines; ref tensor4all-treetn/src/tdvp/mod.rs:1101 is the
-    single-process analog).
+    ops.dmrg_chain.dmrg_run_sharded (ref
+    tensor4all-treetn/src/tdvp/mod.rs:1101 is the single-process
+    analog).
 
     Sharding layout (identical to dmrg_run_sharded):
 
@@ -737,7 +723,7 @@ def tdvp_run_sharded(
     m = krylov_m
     # same two-stage per-core normalization as the unsharded engine
     # (orthogonalize=True contract; prevents the f32 gauge-sweep
-    # overflow found on TPU at N=32)
+    # overflow seen at N=32)
     core_scale = jnp.max(jnp.abs(mps0), axis=(1, 2, 3), keepdims=True)
     mps_o1 = mps0 / jnp.where(core_scale > 0, core_scale, 1.0)
     core_norms = jnp.sqrt(jnp.sum(jnp.abs(mps_o1) ** 2, axis=(1, 2, 3),
@@ -881,7 +867,7 @@ def tdvp_run_sharded(
             return jnp.concatenate([Rs, R_bound[None]], axis=0)
 
         def right_orthogonalize_padded(mps, renorm=False):
-            # renorm: same TPU denormal-flush guard as the unsharded
+            # renorm: same denormal-flush guard as the unsharded
             # engine's initial gauge (see ops.tdvp_chain
             # right_orthogonalize_padded docstring) with collective
             # max/norm over the shard axis

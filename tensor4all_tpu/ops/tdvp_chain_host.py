@@ -8,7 +8,8 @@ early-exit Lanczos propagator. The journal's chain-TDVP config
 (N=8, chi=32, ref tdvp/mod.rs:1101 + BASELINE.md) is latency-bound:
 every XLA dispatch costs ~0.1-0.3 ms on a CPU host and padded static
 shapes waste FLOPs at tiny ranks, so the host loop wins by an order of
-magnitude there. On TPU use ``tdvp_chain`` (one compiled program).
+magnitude there. On an accelerator use ``tdvp_chain`` (one compiled
+program).
 
 Ref: tensor4all-treetn/src/tdvp/mod.rs:1101 (sweep order, the
 backward-evolved one-site step between bonds, adaptive truncation).

@@ -1,9 +1,9 @@
-"""Real/imag-split TDVP chain engine: real-time evolution on TPUs
-WITHOUT complex kernels (VERDICT r1 #9; this chip raises UNIMPLEMENTED
-for every complex dtype).
+"""Real/imag-split TDVP chain engine: real-time evolution in REAL
+arithmetic only, for backends without complex kernels (the native
+complex path is ``ops.tdvp_chain.tdvp_run`` with a complex sweep dtype).
 
 Strategy: every complex tensor is a pair ``(Xr, Xi)`` of real arrays and
-every kernel is expressed in real XLA ops the MXU supports:
+every kernel is expressed in real XLA ops:
 
 - pairwise complex contractions = 4 real einsums (2 when one operand is
   real, e.g. the Hamiltonian MPO);
@@ -50,9 +50,9 @@ def _cmul_ein3(expr, ar, ai, br, bi, precision=None):
     four (rr, ii, and one on the operand sums), at the cost of one
     extra rounding in the imaginary part (|s - rr - ii| cancellation ~
     eps * |a||b| — f32 trajectory grade, below the Trotter floor for
-    production steps; measured against the 4-einsum path in the r4
-    accuracy probe). 25% fewer MXU passes on the complex-complex hot
-    stream of the real-time engine."""
+    production steps; measured against the 4-einsum path). 25% fewer
+    real GEMMs on the complex-complex hot stream of the real-time
+    engine."""
     rr = jnp.einsum(expr, ar, br, optimize=True, precision=precision)
     ii = jnp.einsum(expr, ai, bi, optimize=True, precision=precision)
     sm = jnp.einsum(expr, ar + ai, br + bi, optimize=True,
@@ -140,7 +140,7 @@ def _frame_mgs(cr_all, ci_all, q, thresh, extra=None, chunk=64):
     `extra` fixed basis) with GEMMs; only within-chunk dedup runs
     sequentially — cutting the sequential matvec count from `width` full
     projections to `width` chunk-local ones plus width/chunk GEMMs (the
-    real-time TDVP engine is otherwise MGS-latency-bound on TPU)."""
+    real-time TDVP engine is otherwise MGS-latency-bound)."""
     p, width = cr_all.shape
     chunk = min(chunk, width)
     nch = -(-width // chunk)
@@ -306,7 +306,7 @@ def _ns_polar_pair(wr, wi, iters: int = 48):
     Higham's Newton-Schulz polar iteration X <- X (3I - X^H X) / 2
     applied to the operand directly. No Cholesky, no triangular solve,
     no embedded QR, no sequential MGS — every step is q x q / p x q
-    GEMMs, which is what this TPU wants.
+    GEMMs.
 
     Convergence: each singular value follows s <- s (3 - s^2) / 2,
     monotone to 1 from any s in (0, sqrt(3)); X is pre-scaled by its
@@ -434,8 +434,7 @@ def tdvp_run_split(
     """Evolve ``exp((t_re + i t_im) * H)|mps0>`` with a REAL padded MPO
     ``h`` and a complex state given as the (real, imag) pair; returns the
     evolved pair. All arrays f32/f64 real — no complex dtypes anywhere,
-    so the whole program runs on complex-less TPUs with the chi^3 work
-    on the MXU.
+    with the chi^3 work in real GEMMs.
 
     ``split_orth`` picks the INNER basis conditioner of each two-site
     subspace iteration (the OUTER complex orthonormalization always
@@ -443,7 +442,7 @@ def tdvp_run_split(
     step only needs a complex-span-preserving, well-conditioned
     transform, not complex orthonormality, and the complex
     orthonormalizations are the engine's dominant per-bond fixed cost
-    on TPU (the ~q sequential frame-MGS steps of `_corth_qr`):
+    (the ~q sequential frame-MGS steps of `_corth_qr`):
 
     - ``"qr"`` (default): inner corth too — two complex
       orthonormalizations per iteration, the accuracy reference
@@ -531,7 +530,7 @@ def _tdvp_sweeps_split(h, mps0_r, mps0_i, t_re, t_im, nsteps, order,
     # decay of the propagator coefficients makes the TAIL Krylov applies
     # bf16-tolerant; f32 sweeps only.
     tail = bf16_tail if (bf16_tail and st == jnp.float32) else 0
-    _P1 = jax.lax.Precision.DEFAULT  # single bf16 MXU pass
+    _P1 = jax.lax.Precision.DEFAULT  # fastest pass for bf16 operands
 
     def norm2_of(ar, ai):
         return (jnp.sum(ar * ar) + jnp.sum(ai * ai)).astype(jnp.float64)
@@ -544,7 +543,7 @@ def _tdvp_sweeps_split(h, mps0_r, mps0_i, t_re, t_im, nsteps, order,
             # real einsums each), amortized over the m Krylov
             # iterations: every iteration is then TWO complex GEMMs =
             # 8 real GEMMs with every M/N/K >= chi d — no (w d)-sized
-            # contraction pass touches the MXU (same trade as
+            # contraction (same trade as
             # ops.tdvp_chain.tdvp_run(gemm2_apply=True))
             LWr, LWi = _rmul_ein("alx,lpim->aixpm", Lr, Li, Wl)
             RWr, RWi = _rmul_ein("brB,mqjr->mjbqB", Rr, Ri, Wr)
@@ -704,9 +703,8 @@ def _tdvp_sweeps_split(h, mps0_r, mps0_i, t_re, t_im, nsteps, order,
         amask = jnp.stack(amask)
         # exp((c_re + i c_im) T) e0 by pair-arithmetic scaling-and-
         # squaring (dead slots carry zero diag/offd and decouple). The
-        # solve runs at the sweep grade: f64 matmuls are emulated on TPU
-        # (the Horner+squaring chain was ~100x off its MXU cost in f64),
-        # and eps(st)-grade coefficients match the st-grade basis.
+        # solve runs at the sweep grade: eps(st)-grade coefficients match
+        # the st-grade basis.
         coef_r, coef_i = _expm_tridiag_pair_e0(
             alphas.astype(st), betas.astype(st),
             jnp.asarray(c_re, st), jnp.asarray(c_im, st),
@@ -829,8 +827,9 @@ def _tdvp_sweeps_split(h, mps0_r, mps0_i, t_re, t_im, nsteps, order,
         ``renorm=True`` (initial gauge only): rescale the carried core
         to unit joint norm each step — the residual-factor product of a
         per-core-normalized random chain decays like c^N, and by site 0
-        the f32 sum-of-squares lands in the denormal range that TPUs
-        FLUSH TO ZERO, NaN'ing the run (same guard as ops.tdvp_chain)."""
+        the f32 sum-of-squares lands in the denormal range that
+        accelerators may FLUSH TO ZERO, NaN'ing the run (same guard as
+        ops.tdvp_chain)."""
 
         def body(carry, k):
             mr, mi = carry

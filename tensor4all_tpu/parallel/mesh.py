@@ -2,14 +2,16 @@
 
 This subsystem is NEW relative to the reference: tensor4all-rs is single
 process (SURVEY.md §2.17) — its only parallelism is a CPU thread pool
-inside the dense backend. The TPU-native equivalents (SURVEY.md §5.8):
+inside the dense backend. The device-mesh equivalents (SURVEY.md §5.8),
+on 1-D meshes shaped by the algorithm alone (the cards of one host are
+joined all to all, so no axis is cheaper than another):
 
-- **ICI / within-slice**: the TCI hot loop (Pi-matrix fill = batched
+- **batch sharding**: the TCI hot loop (Pi-matrix fill = batched
   function evaluation over candidate indices) is embarrassingly parallel
   over the batch; we shard the batch axis over a 1-D mesh and let XLA
   partition the evaluation (replicated TT cores / closure constants,
   sharded index batches).
-- **DCN / cross-slice**: independent PartitionedTT patches and batched
+- **coarse distribution**: independent PartitionedTT patches and batched
   QTCI components distribute coarsely (parallel_map_patches).
 - Distributed reductions (inner products for GMRES/Lanczos over sharded
   operands) ride `jax.lax.psum` inside `shard_map` — see
@@ -101,7 +103,7 @@ def make_sharded_tt_batch_eval(tt, mesh: Optional[Mesh] = None):
 def sharded_gram(vectors: jnp.ndarray, mesh: Optional[Mesh] = None,
                  axis: str = "batch") -> jnp.ndarray:
     """Gram matrix of row vectors with the row axis sharded: per-device
-    partial products reduced with psum over ICI (the collective pattern
+    partial products reduced with psum (the collective pattern
     distributed Krylov inner products use)."""
     mesh = mesh or default_mesh()
 
@@ -130,7 +132,7 @@ def shard_vector(x, mesh: Optional[Mesh] = None, axis: str = "batch"):
 class ShardedArrayVS:
     """Krylov VectorSpace over mesh-sharded 1-D arrays: inner products
     and norms are per-device partial reductions combined with `psum`
-    over ICI (SURVEY.md §5.8); axpby/scale stay sharded elementwise.
+    (SURVEY.md §5.8); axpby/scale stay sharded elementwise.
 
     Plug into core.krylov.gmres / hermitian_lanczos_lowest_eigenpair to
     run distributed Krylov solves (VERDICT r1 #8)."""
@@ -168,7 +170,7 @@ class ShardedArrayVS:
 
 def parallel_map_patches(fn: Callable, items: Sequence,
                          n_workers: Optional[int] = None) -> list:
-    """Coarse work distribution over independent items (the DCN axis):
+    """Coarse work distribution over independent items:
     each item's host-driven loop runs in its own thread, so device work
     from different patches interleaves. Ref embarrassingly-parallel
     patches (partitionedtt patching.rs) / batched QTCI components."""

@@ -10,7 +10,7 @@ a device mesh:
   axis; operator cores and the right environment are replicated.
 - each device contracts its chi/n slice (the dominant chi^3 d^2 w work
   splits n ways, per-device memory for the Krylov vectors is chi^2 d^2/n),
-- the partial results are combined with `psum_scatter` over ICI — the
+- the partial results are combined with `psum_scatter` — the
   canonical matmul reduce-scatter pattern — leaving the output sharded
   exactly like the input, so Krylov iterations chain without resharding.
 
@@ -75,7 +75,7 @@ def place_two_site_operands(L, W1, W2, R, theta, mesh: Mesh,
 
 class ShardedThetaVS:
     """VectorSpace over mesh-sharded two-site theta blocks: inner/norm
-    ride `psum` over ICI, axpby/scale stay sharded elementwise. Plug
+    ride `psum`, axpby/scale stay sharded elementwise. Plug
     into core.krylov gmres / hermitian_lanczos_lowest_eigenpair for
     local solves whose Krylov vectors never live on one device."""
 

@@ -1,6 +1,6 @@
 """Quantics grids: coordinates <-> bit-string tensor indices.
 
-TPU-native rebuild of the reference's external `quanticsgrids` dependency
+JAX rebuild of the reference's external `quanticsgrids` dependency
 (used by tensor4all-quanticstci, src/lib.rs:1-99): a d-dimensional box is
 discretized on 2^R points per dimension; grid points are addressed by R
 bits per dimension (MSB first), unfolded into tensor sites either

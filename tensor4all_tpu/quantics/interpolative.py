@@ -1,6 +1,6 @@
 """Interpolative QTT: Chebyshev-Lagrange construction without TCI.
 
-TPU-native rebuild of tensor4all-interpolativeqtt
+JAX rebuild of tensor4all-interpolativeqtt
 (crates/tensor4all-interpolativeqtt/src/interpolation.rs:47-460
 single/multi-scale/adaptive variants, basis.rs LagrangePolynomials +
 Chebyshev grid): the multiscale identity

@@ -1,7 +1,7 @@
 """Quantics TCI: cross-interpolate continuous/discrete functions on
 exponentially fine grids.
 
-TPU-native rebuild of tensor4all-quanticstci/src/quantics_tci.rs
+JAX rebuild of tensor4all-quanticstci/src/quantics_tci.rs
 (:71 `QuanticsTensorCI2`, :458 `quanticscrossinterpolate`, :621 discrete
 variant, :729 from-arrays; batched/mod.rs:206): grid encoding + TCI2 with
 the batched function evaluated through the grid mapping; `evaluate` maps
@@ -239,7 +239,7 @@ def quanticscrossinterpolate_batched(
     point-level cache means a coordinate sampled by any component's
     pivots serves all components with ONE call to `f` (the reference's
     Arc<Mutex<HashMap>> cache) — this is also the natural
-    embarrassingly-parallel DCN decomposition (SURVEY.md §5.8)."""
+    embarrassingly-parallel coarse decomposition (SURVEY.md §5.8)."""
     if isinstance(output_dims, (int, np.integer)):
         output_dims = [int(output_dims)]
     ncomp = int(np.prod(list(output_dims)))

@@ -1,6 +1,6 @@
 """Quantics-space transform operators (MPO constructors).
 
-TPU-native rebuild of tensor4all-quanticstransform/src/
+JAX rebuild of tensor4all-quanticstransform/src/
 (flip.rs:41 `flip_operator`, shift.rs:45,81 `shift_operator{,_multivar}`,
 phase_rotation.rs:55, cumsum.rs:72,106 `cumsum_operator`/`triangle`,
 fourier.rs:202 `quantics_fourier_operator` (Chen-Lindsey QFT MPO,

@@ -1,6 +1,6 @@
 """Memoized black-box function evaluation with batch support.
 
-TPU-native rebuild of tensor4all-tcicore/src/cached_function/mod.rs:391-793
+JAX rebuild of tensor4all-tcicore/src/cached_function/mod.rs:391-793
 (`CachedFunction`): thread-safe memoization of ``f(multi-index) -> value``
 keyed by mixed-radix packed integers, with batch evaluation and hit
 statistics.
@@ -176,7 +176,7 @@ def make_jax_batch_f(jax_f, n_args: int, mesh=None):
     the result is vmapped+jitted over the batch — the pure-device fast path
     for jittable integrands. With `mesh`, the batch axis is sharded over
     the device mesh (parallel.shard_batch_eval): the TCI hot loop runs
-    data-parallel over ICI.
+    data-parallel over the mesh.
     """
     import jax
 
@@ -189,8 +189,7 @@ def make_jax_batch_f(jax_f, n_args: int, mesh=None):
 
     def batch_f(idx: np.ndarray) -> np.ndarray:
         # bucket-pad the batch axis: TCI emits a different B at every
-        # bond update, and one XLA compile per distinct B costs seconds
-        # on a remote TPU (measured: 200 s -> 4 s on an 8-site TCI).
+        # bond update, and one XLA compile per distinct B costs seconds.
         # Padding repeats row 0 (always a valid index tuple).
         idx = np.asarray(idx)
         B = idx.shape[0]
@@ -206,11 +205,11 @@ def make_jax_batch_f(jax_f, n_args: int, mesh=None):
 def _bucket_batch(B: int, floor: Optional[int] = None) -> int:
     """Next power-of-two batch bucket (bounds compile count).
 
-    On accelerator backends the floor is 1024: a remote-TPU XLA compile
-    costs tens of seconds per distinct shape while evaluating 1024
-    padded points costs the same ~30 ms dispatch as 32, so one fixed
-    shape for all small batches means ONE compile for the whole TCI
-    run. On CPU padding is real compute, so the floor stays small."""
+    On accelerator backends the floor is 1024: an XLA compile costs
+    seconds per distinct shape while evaluating 1024 padded points costs
+    about the same dispatch as 32, so one fixed shape for all small
+    batches means ONE compile for the whole TCI run. On CPU padding is
+    real compute, so the floor stays small."""
     if floor is None:
         try:
             import jax

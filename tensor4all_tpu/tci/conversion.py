@@ -1,6 +1,6 @@
 """Rebuild TCI2 pivot state from an existing TensorTrain.
 
-TPU-native rebuild of tensor4all-tensorci/src/conversion.rs:1-260
+JAX rebuild of tensor4all-tensorci/src/conversion.rs:1-260
 (`tensorci2_from_tensor_train`, `sweep1site_get_indices`, `sweep_pair`):
 pivot index sets are extracted *directly* from the TT cores by one-site
 LU sweeps — no re-interpolation of the train, no extra function

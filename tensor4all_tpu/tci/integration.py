@@ -1,6 +1,6 @@
 """Multi-dimensional quadrature via TCI + embedded Gauss-Kronrod rules.
 
-TPU-native rebuild of tensor4all-tensorci/src/integration.rs:1-823: the
+JAX rebuild of tensor4all-tensorci/src/integration.rs:1-823: the
 reference embeds fixed GK(15/31/41/51/61) tables; here the Kronrod
 extension is COMPUTED at construction from the Legendre recurrence by
 Laurie's algorithm (D. P. Laurie, "Calculation of Gauss-Kronrod

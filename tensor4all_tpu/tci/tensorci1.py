@@ -1,6 +1,6 @@
 """TCI1 — one-site cross interpolation driven by lazy ACA pivoting.
 
-TPU-native rebuild of tensor4all-tensorci/src/tensorci1.rs:1-1055
+JAX rebuild of tensor4all-tensorci/src/tensorci1.rs:1-1055
 (`TensorCI1`, `TCI1SweepStrategy`) on top of tcicore's ACA machinery
 (matrixaca.rs): each bond grows by AT MOST ONE pivot per half-sweep,
 found by a lazy rook walk over the implicit Pi matrix

@@ -1,6 +1,6 @@
 """TCI2 — two-site tensor cross interpolation of a black-box function.
 
-TPU-native rebuild of tensor4all-tensorci/src/tensorci2.rs
+JAX rebuild of tensor4all-tensorci/src/tensorci2.rs
 (`TensorCI2` :259, `sweep2site` :605, `sweep1site` :713, `update_pivots`
 :1552, `fill_site_tensors` :887, `crossinterpolate2` :1279,
 `optimize_with_finder` :1389, `TCI2Options` :71, `PivotSearchStrategy`
@@ -395,8 +395,7 @@ class TensorCI2:
 
         All evaluations go through the memoized CachedFunction, so after
         a sweep this costs no *new* f-evals for entries already sampled.
-        The solve runs on host (P is rank x rank; the TPU backend has no
-        f64 LU kernel).
+        The solve runs on host (P is rank x rank).
         """
         L = self.L
         for b in range(L):

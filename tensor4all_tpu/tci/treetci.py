@@ -1,6 +1,6 @@
 """TreeTCI: tensor cross interpolation on tree topologies.
 
-TPU-native rebuild of tensor4all-treetci
+JAX rebuild of tensor4all-treetci
 (crates/tensor4all-treetci/src/api.rs:77 `crossinterpolate2`,
 state.rs:38 `TreeTCI2`, optimize.rs:179 edge-local pivot updates,
 materialize.rs:17 pivot-system solves, graph.rs `TreeTciGraph`,

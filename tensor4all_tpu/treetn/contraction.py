@@ -1,6 +1,6 @@
 """TreeTN x TreeTN contraction: one-pass zipup + partial contraction.
 
-TPU-native rebuild of tensor4all-treetn/src/treetn/contraction.rs
+JAX rebuild of tensor4all-treetn/src/treetn/contraction.rs
 (`contract_zipup` :268, scalar-subtree pruning :520) and
 partial_contraction.rs:1-1295 (`PartialContractionSpec`,
 `partial_contract` :857, `hadamard` :1064, `weighted_sum_over_index_pairs`
@@ -11,7 +11,7 @@ every child tensor is truncated (factorize with the policy cap) *before*
 its right factor flows to the parent — peak bond never exceeds the cap,
 unlike naive-contract-then-truncate whose peak is the product of operand
 bonds. Each per-edge factorization is a single chi^2 x chi^2-shaped
-kernel on the MXU.
+kernel.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """DMRG: two-site ground-state search on tree tensor networks.
 
-TPU-native rebuild of tensor4all-treetn/src/dmrg/mod.rs
+JAX rebuild of tensor4all-treetn/src/dmrg/mod.rs
 (`dmrg` :626, `dmrg_with_treetn_operator` :751, `DmrgOptions` :174,
 local solve :409): canonicalize to the sweep origin, walk the Euler tour
 with two-site regions, solve each local eigenproblem with Lanczos on the

@@ -1,11 +1,11 @@
 """Evaluators: single-point and device-batched TreeTN evaluation.
 
-TPU-native rebuild of tensor4all-treetn/src/evaluator.rs (TreeTNEvaluator)
+JAX rebuild of tensor4all-treetn/src/evaluator.rs (TreeTNEvaluator)
 and cached_evaluator.rs:1-1866 (TreeTNCachedEvaluator — batch evaluation
 with environment caching). Where the reference caches per-assignment
-environment tensors host-side, the TPU-native design vectorizes the whole
+environment tensors host-side, this design vectorizes the whole
 batch on device: each node's tensor is gathered at the batch's site values
-and messages flow leaf-to-root as batched contractions (MXU matmuls) — a
+and messages flow leaf-to-root as batched contractions (matmuls) — a
 single jitted program per (topology, shapes) signature.
 """
 

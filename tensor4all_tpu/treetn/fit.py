@@ -1,6 +1,6 @@
 """Variational (fit) application of operators on tree networks.
 
-TPU-native rebuild of tensor4all-treetn/src/contraction fit
+JAX rebuild of tensor4all-treetn/src/contraction fit
 (fit.rs:1053 `C ≈ A·B` with environment caches + Euler-tour local updates;
 operator/apply.rs ApplyOptions::fit): sweep two-site regions of the output
 network, replacing each region by the environment-projected image of

@@ -1,6 +1,6 @@
 """GSE: per-bond global subspace expansion for TDVP on tree networks.
 
-TPU-native rebuild of tensor4all-treetn/src/gse.rs (`GseOptions` :33,
+JAX rebuild of tensor4all-treetn/src/gse.rs (`GseOptions` :33,
 `global_subspace_expand` :267, `global_subspace_expand_with_references`
 :296, `gse_tdvp` :359, `expand_one_edge` :588, `build_reference_density`
 :920, `projected_missing_density_tensor` :1071).

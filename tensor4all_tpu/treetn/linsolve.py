@@ -1,6 +1,6 @@
 """square_linsolve: solve (a0 + a1*A)|x> = |b> on tree tensor networks.
 
-TPU-native rebuild of tensor4all-treetn/src/linsolve/square/
+JAX rebuild of tensor4all-treetn/src/linsolve/square/
 (mod.rs:137 entry, updater.rs `SquareLinsolveUpdater`, local_linop.rs,
 LinsolveOptions/GmresToleranceMode in common/): canonicalize x, walk the
 Euler tour with two-site regions, solve each local projected system

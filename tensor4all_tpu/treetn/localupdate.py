@@ -1,6 +1,6 @@
 """Reusable local-update sweep framework for TreeTNs.
 
-TPU-native rebuild of tensor4all-treetn/src/treetn/localupdate.rs:25-896
+JAX rebuild of tensor4all-treetn/src/treetn/localupdate.rs:25-896
 (`LocalUpdateStep`, `LocalUpdateSweepPlan`, `LocalUpdater`,
 `apply_local_update_sweep`, `TruncateUpdater`, `extract_subtree` :606,
 `replace_subtree` :767) and local_update_support.rs.

@@ -1,6 +1,6 @@
 """Tree tensor networks over named nodes.
 
-TPU-native rebuild of tensor4all-treetn
+JAX rebuild of tensor4all-treetn
 (crates/tensor4all-treetn/src/treetn/mod.rs:125 `TreeTN`, :238
 `from_tensors`, named_graph.rs `NamedGraph`, site_index_network.rs): host
 Python owns the topology (a networkx graph of named nodes, edges carrying

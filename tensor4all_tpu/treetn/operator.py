@@ -1,6 +1,6 @@
 """Linear operators (tree MPOs) on TreeTN states.
 
-TPU-native rebuild of tensor4all-treetn/src/operator/
+JAX rebuild of tensor4all-treetn/src/operator/
 (linear_operator.rs:70 `LinearOperator`, apply.rs:300
 `apply_linear_operator`, `ApplyOptions` :168-187): an operator is a TreeTN
 on the same topology whose node tensors carry an (out, in) site pair —

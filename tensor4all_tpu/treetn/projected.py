@@ -1,6 +1,6 @@
 """Projected operators: cached environments of <x|A|x> around local regions.
 
-TPU-native rebuild of tensor4all-treetn/src/linsolve/common/
+JAX rebuild of tensor4all-treetn/src/linsolve/common/
 (projected_operator.rs:43 `ProjectedOperator`, apply :223,
 environment.rs:1-216 `EnvironmentCache`, projected_state.rs
 `ProjectedState`): per directed edge (a -> b), the environment is the
@@ -67,7 +67,7 @@ class ProjectedOperator:
     whose left bond divides the mesh size run chi-partitioned over the
     devices (parallel.solvers.two_site_apply_sharded): theta and the
     left environment sharded on the chi axis, partials combined by
-    psum_scatter over ICI. Other region shapes fall back to the local
+    psum_scatter. Other region shapes fall back to the local
     contraction transparently.
     """
 

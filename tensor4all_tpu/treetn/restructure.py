@@ -1,6 +1,6 @@
 """Topology restructuring: fuse, split, and site-index swaps.
 
-TPU-native rebuild of tensor4all-treetn/src/restructure/
+JAX rebuild of tensor4all-treetn/src/restructure/
 (mod.rs:1-2048 plan-first restructuring, transform.rs:1-998 `fuse_to`/
 `split_to` with Steiner-tree regions, swap.rs:1-589 scheduled site swaps).
 Operations mutate a copy and return it; numerics are single contractions

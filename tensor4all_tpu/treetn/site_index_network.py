@@ -1,6 +1,6 @@
 """SiteIndexNetwork: topology + site-space bookkeeping without tensors.
 
-TPU-native rebuild of tensor4all-treetn/src/site_index_network.rs:1-593
+JAX rebuild of tensor4all-treetn/src/site_index_network.rs:1-593
 (inspired by ITensorNetworks.jl's IndsNetwork): an undirected tree graph
 (networkx) plus a per-node set of physical (site) indices. This is the
 structural contract restructure_to targets, operators validate against,

@@ -1,6 +1,6 @@
 """TDVP: time evolution on tree tensor networks.
 
-TPU-native rebuild of tensor4all-treetn/src/tdvp/
+JAX rebuild of tensor4all-treetn/src/tdvp/
 (mod.rs:1101 `tdvp`, :1237 `tdvp_with_treetn_operator`, `TdvpOptions`
 :273, plan.rs:1-379 ITensorNetworks-compatible region plans).
 

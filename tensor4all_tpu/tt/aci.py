@@ -1,6 +1,6 @@
 """ACI: elementwise operations on tensor trains by cross interpolation.
 
-TPU-native rebuild of tensor4all-aci
+JAX rebuild of tensor4all-aci
 (crates/tensor4all-aci/src/elementwise.rs:76 `elementwise_batched`,
 options.rs `AciOptions`, batch.rs `ElementwiseBatch`, state.rs
 `ElementwiseProblem`, local.rs `LocalBlockEvaluator`, random_tt.rs

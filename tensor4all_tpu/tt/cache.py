@@ -1,6 +1,6 @@
 """Cached partial contractions for repeated TT evaluation.
 
-TPU-native rebuild of tensor4all-simplett/src/cache.rs:1-679 (`TTCache`):
+JAX rebuild of tensor4all-simplett/src/cache.rs:1-679 (`TTCache`):
 BOTH left-prefix and right-suffix environment vectors are memoized
 host-side keyed by index tuples, so repeated evaluations that share
 prefixes or suffixes (the access pattern of TCI pivot enumeration, which

@@ -1,6 +1,6 @@
 """Canonical TT forms: center-canonical and Vidal (Gamma-Lambda).
 
-TPU-native rebuild of tensor4all-simplett/src/canonical.rs:1-515
+JAX rebuild of tensor4all-simplett/src/canonical.rs:1-515
 (`SiteTensorTrain`) and vidal.rs:1-749 (`VidalTensorTrain`).
 """
 

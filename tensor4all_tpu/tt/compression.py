@@ -1,10 +1,10 @@
 """TT-SVD construction and sweep recompression.
 
-TPU-native rebuild of tensor4all-simplett/src/compression.rs
+JAX rebuild of tensor4all-simplett/src/compression.rs
 (`CompressionMethod` :27, `compress` :330, `factorize_svd` :203): a
 left-to-right orthogonalization pass (QR) followed by a right-to-left
 truncation sweep factorizing each bond. Per-bond factorization is the
-chi^3 kernel the MXU must own: matrices are (r*d, r), contiguous, and all
+chi^3 kernel of the sweep: matrices are (r*d, r), contiguous, and all
 factorizations are single XLA calls.
 
 Methods: ``svd`` (default here), ``lu`` / ``ci`` (rank-revealing LU cross

@@ -1,6 +1,6 @@
 """Matrix product operators over rank-4 cores, with naive and zipup apply.
 
-TPU-native rebuild of tensor4all-simplett/src/mpo/
+JAX rebuild of tensor4all-simplett/src/mpo/
 (mod.rs:1-31 `MPO`, contract_zipup.rs, contract_fit.rs, environment.rs).
 Core layout: ``W[k] : (l_k, out_d, in_d, l_{k+1})`` with boundary links 1.
 

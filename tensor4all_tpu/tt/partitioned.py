@@ -1,14 +1,14 @@
 """Partitioned tensor trains: domain decomposition with projectors.
 
-TPU-native rebuild of tensor4all-partitionedtt
+JAX rebuild of tensor4all-partitionedtt
 (crates/tensor4all-partitionedtt/src/lib.rs:12-33 `Projector`,
 `SubDomainTT`, `PartitionedTT`; patching.rs:37-346 adaptive patching).
 
 A Projector fixes a subset of sites to concrete values; a SubDomainTT is
 a TT over the free sites valid only on its patch; a PartitionedTT is a
 set of sub-domain TTs on pairwise-disjoint patches whose sum represents
-the full function. Patches are embarrassingly parallel — the natural DCN
-axis for multi-slice runs (SURVEY.md §5.8).
+the full function. Patches are embarrassingly parallel — the natural
+coarse axis for multi-device runs (SURVEY.md §5.8).
 """
 
 from __future__ import annotations

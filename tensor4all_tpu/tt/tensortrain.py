@@ -1,12 +1,12 @@
 """Tensor trains (MPS) over plain rank-3 cores.
 
-TPU-native rebuild of tensor4all-simplett
+JAX rebuild of tensor4all-simplett
 (crates/tensor4all-simplett/src/tensortrain.rs:1-593 `TensorTrain`,
 traits.rs:74-375 `AbstractTensorTrain`): a TT is a host list of rank-3
 ``jax.Array`` cores ``cores[k] : (r_{k-1}, d_k, r_k)`` with boundary ranks
 1. All evaluation paths are batched device programs: point evaluation is a
 chain of matvecs, batch evaluation gathers per-site core slices and runs a
-batched matmul chain on the MXU — this is the kernel the reference runs
+batched matmul chain on the device — this is the kernel the reference runs
 per-sample on CPU (tensortrain.rs `evaluate`) and the TCI hot loop
 batches over.
 """
@@ -159,7 +159,7 @@ class TensorTrain:
     def evaluate_batch(self, idx) -> jnp.ndarray:
         """Values at a batch of multi-indices: (B, L) -> (B,).
 
-        Device-batched (MXU) — the rebuild's answer to the reference's
+        Device-batched — the rebuild's answer to the reference's
         per-sample host evaluation; shard over devices via
         ``parallel.shard_batch_eval`` for multi-chip runs.
         """
@@ -173,7 +173,7 @@ class TensorTrain:
             on_cpu = True
         if not on_cpu and B > 0:
             # bucket the batch axis: each distinct shape is an XLA
-            # compile (tens of seconds on a remote TPU); padded index 0
+            # compile (seconds); padded index 0
             # rows are valid and sliced off after
             from ..tci.cached_function import _bucket_batch
 

@@ -1,6 +1,6 @@
 """Memory pressure relief and device memory introspection.
 
-TPU-native rebuild of tensor4all-tensorbackend/src/memory.rs:37-90
+JAX rebuild of tensor4all-tensorbackend/src/memory.rs:37-90
 (malloc_trim / malloc_zone_pressure_relief hooks): on the JAX runtime the
 equivalents are clearing compilation/dispatch caches, dropping live-array
 references, and querying the device allocator.
@@ -26,7 +26,7 @@ def live_array_bytes() -> int:
 
 
 def device_memory_stats(device: Optional[jax.Device] = None) -> Dict:
-    """Allocator stats where the backend exposes them (TPU does; CPU may
+    """Allocator stats where the backend exposes them (GPU does; CPU may
     return an empty dict)."""
     dev = device or jax.devices()[0]
     stats = getattr(dev, "memory_stats", None)

@@ -1,6 +1,6 @@
 """Profiling / tracing / observability.
 
-TPU-native rebuild of the reference's env-gated, zero-cost-when-off
+JAX rebuild of the reference's env-gated, zero-cost-when-off
 counters (SURVEY.md §5.1: tenferro_bridge.rs:108-420 per-signature einsum
 profiles, contract.rs:79 T4A_PROFILE_CONTRACT, krylov.rs:49-70 GMRES op
 profiles; §5.5 counters): JAX's own profiler (jax.profiler.trace) subsumes

@@ -1,5 +1,5 @@
 """Host-numpy chain engines (ops.tdvp_chain_host): accuracy vs dense
-oracles — the CPU-backend siblings of the jitted TPU engines."""
+oracles — the CPU-backend siblings of the jitted device engines."""
 
 import numpy as np
 import pytest

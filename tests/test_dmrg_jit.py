@@ -82,7 +82,7 @@ def test_dmrg_f32_large_chain_regression():
     """N=32, chi=64, f32 sweeps: a right-canonical random init holds the
     full state norm (~1e-19) in core 0, whose f32 sum-of-squares
     underflowed and silently zeroed the first theta — garbage energies
-    on CPU, NaN on TPU. The engine now normalizes cores before the
+    in f32, or NaN. The engine now normalizes cores before the
     precision cast (scale-invariant for DMRG)."""
     import networkx as nx
 

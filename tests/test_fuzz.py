@@ -277,9 +277,8 @@ def test_fuzz_tdvp_speed_knobs_random_configs(seed):
     gemm2_apply, precision) knob combinations on random chains must stay
     FINITE and within the integrator's error envelope of the
     all-defaults trajectory (the knobs are approximation-grade choices,
-    never correctness switches; the TPU NaN episode in
-    benchmarks/results/2026-08-18-tdvp-nan-fix.md is the motivating
-    regression class)."""
+    never correctness switches; an f32 NaN episode in the production
+    rows is the motivating regression class)."""
     import jax.numpy as jnp
 
     from tensor4all_tpu.models.spin import heisenberg

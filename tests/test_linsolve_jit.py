@@ -91,7 +91,7 @@ def test_linsolve_chain_extreme_rhs_scale():
     """Internal b-gauge with log-scale tracking: rhs cores scaled by
     1e30 PER CORE (||b|| ~ 1e180 — transfer scans overflow even f64
     without the gauge) must give the same solution as the unit-scale
-    solve, times the scale. Regression for the TPU f32 NaN found at
+    solve, times the scale. Regression for the f32 NaN found at
     N=32 production scale."""
     N, chi, chib = 6, 8, 4
     a0, a1 = 1.0, 0.05

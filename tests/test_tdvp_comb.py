@@ -139,7 +139,7 @@ def test_tdvp_comb_mt0_matches_dense(key):
 
 
 def test_tdvp_comb_imaginary_time_real_dtype(key):
-    """Real f64 sweeps (the complex-less-TPU path): imaginary time
+    """Real f64 sweeps (the real-arithmetic path): imaginary time
     matches the dense direction."""
     H = dense_h(3, 1)
     wb, wt, ab0, at0, psi0 = start_state(key, 3, 1, 8, 2, H)

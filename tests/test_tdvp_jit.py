@@ -49,7 +49,7 @@ def test_tdvp_chain_real_time():
 
 
 def test_tdvp_chain_imaginary_time_real_dtype():
-    """Real sweep dtype (the TPU path on chips without complex
+    """Real sweep dtype (the path for backends without complex
     kernels): imaginary-time evolution matches dense expm direction."""
     N, chi = 8, 32
     h_cores, cores0, H, psi0 = _setup(N, chi)
@@ -126,7 +126,7 @@ def test_expm_tridiag_e0_matches_eigh():
 
 
 def test_expm_tridiag_pair_e0_matches_complex():
-    """Pair-arithmetic variant (complex-less TPUs) matches the complex
+    """Pair-arithmetic variant (real arithmetic) matches the complex
     reference for real-time and mixed coefficients."""
     from tensor4all_tpu.ops.tdvp_chain_split import _expm_tridiag_pair_e0
 
@@ -150,7 +150,7 @@ def test_expm_tridiag_pair_e0_matches_complex():
 
 def test_tdvp_fast_knobs_match_default():
     """gemm2_apply + reortho=False + precision='high' keep the
-    trajectory within the step-error contract (the TPU production
+    trajectory within the step-error contract (the production
     knobs; the FLOP model mirrors them)."""
     from tensor4all_tpu.ops.dmrg_chain import pad_mpo, pad_mps
     from tensor4all_tpu.ops.tdvp_chain import tdvp_run
@@ -182,7 +182,7 @@ def test_tdvp_bf16_tail_knobs_match_default():
     T = 0.08
     h = pad_mpo([jnp.asarray(c, jnp.float32) for c in h_cores])
     mps0 = pad_mps([jnp.asarray(c, jnp.float32) for c in cores0], chi)
-    # imaginary time (real arithmetic, the TPU path)
+    # imaginary time (real arithmetic)
     mps = tdvp_run(h, mps0, -T, nsteps=4, order=2, krylov_m=12,
                    sweep_dtype=jnp.float32, orthogonalize=True,
                    precision="high", reortho=False, gemm2_apply=True,
@@ -206,8 +206,8 @@ def test_tdvp_bf16_tail_knobs_match_default():
 def test_tdvp_run_orthogonalize_normalizes_large_n_f32():
     """orthogonalize=True per-core normalization guard: raw random f32
     cores at N=32 have state norm ~1e80, which overflowed the in-program
-    QR gauge sweep and NaN'd the whole evolution (found on TPU; the
-    production bench row was silently NaN)."""
+    QR gauge sweep and NaN'd the whole evolution (the production bench
+    row was silently NaN)."""
     from tensor4all_tpu.ops.dmrg_chain import pad_mpo, pad_mps
     from tensor4all_tpu.ops.tdvp_chain import tdvp_run
 
@@ -410,7 +410,7 @@ def test_tdvp_star_engine_real_time_matches_dense():
 
 
 def test_tdvp_star_engine_imaginary_time_real_dtype():
-    """Imaginary time in REAL arithmetic (the complex-less TPU path)
+    """Imaginary time in REAL arithmetic (the real-arithmetic path)
     lowers the energy toward the star ground state."""
     import networkx as nx
 

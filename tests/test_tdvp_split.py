@@ -1,6 +1,6 @@
 """Real/imag-split TDVP engine tests (ops.tdvp_chain_split): real-time
 evolution with NO complex dtypes anywhere (VERDICT r1 #9 — the path that
-runs on TPUs whose backend lacks complex kernels)."""
+runs on backends that lack complex kernels)."""
 
 import jax
 import jax.numpy as jnp
@@ -93,7 +93,7 @@ def test_split_tdvp_matches_dense_f64():
 
 
 def test_split_tdvp_f32_contract():
-    """f32 (the TPU dtype) stays within the reference accuracy contract
+    """f32 (the fast dtype) stays within the reference accuracy contract
     scale (TDVP L2 ~1.4e-5 at dt=0.02; ref BASELINE.md)."""
     h_cores, cores, H = _chain_fixture(6)
     T = 0.3
